@@ -1,0 +1,15 @@
+"""orb_slam_system_tpu_torch — the PyTorch + CUDA port of orb_slam_system_tpu.
+
+The JAX package beside this one is the reference; this package mirrors its
+layout (ops/, solvers/, models/, utils/, dataio/) so the counterpart of each
+module is easy to find. It imports torch and never jax. Every Pallas kernel
+on the ported path is a hand-written CUDA kernel for Hopper (sm_90a) under
+csrc/, built at first use by utils/kernels.py; each kernel's plain PyTorch
+version lives beside its wrapper and serves CPU tensors.
+
+Ported so far: the monocular front end (FrameBuilder.build) and the fused
+steady-state tracking step (TrackPrograms.fused_step, with the host step
+models.tracking.fused_track_step around it).
+"""
+
+__version__ = "0.1.0"

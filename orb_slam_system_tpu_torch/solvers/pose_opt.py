@@ -1,0 +1,128 @@
+"""Motion-only pose optimization (Levenberg-Marquardt on SE3).
+
+Port of orb_slam_system_tpu/solvers/pose_opt.py (reference
+Optimizer::PoseOptimization): one SE3 vertex, N monocular and stereo
+reprojection edges with information invSigma2*I and Huber kernels
+delta = sqrt(5.991) mono / sqrt(7.815) stereo, run as 4 rounds x 10 LM
+iterations with chi2 inlier reclassification between rounds; the Huber
+kernel is dropped after round 2. Stereo edges (obs_ur >= 0) add the
+right-column residual u_r - (u - bf/z).
+
+The loop keeps the LM state (xi, lambda, the accept decision) as tensors:
+nothing inside it reads a value back to the host, so on the card the 40
+iterations enqueue without a single synchronization.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from orb_slam_system_tpu_torch.utils import lie
+
+CHI2_MONO = 5.991            # reference src/Optimizer.cc:330
+CHI2_STEREO = 7.815          # reference chi2Stereo
+HUBER_DELTA_MONO = 2.447731  # sqrt(5.991)
+HUBER_DELTA_STEREO = 2.795532  # sqrt(7.815)
+
+
+def _residuals(xi, T0, Xw, obs, obs_ur, bf, fx, fy, cx, cy, with_jac):
+    """e = [obs_uv - pi(X); obs_ur - (u - bf/z)] at pose exp(xi) T0.
+    Returns (e [N,3], J [N,3,6] or None, z [N], is_stereo [N])."""
+    T = lie.se3_exp(xi) @ T0
+    Xc = Xw @ T[:3, :3].T + T[:3, 3]
+    x, y, z = Xc.unbind(1)
+    zs = torch.where(z.abs() < 1e-9, torch.full_like(z, 1e-9), z)
+    inv_z = 1.0 / zs
+    u = fx * x * inv_z + cx
+    v = fy * y * inv_z + cy
+    is_stereo = obs_ur >= 0
+    zero = torch.zeros_like(x)
+    e = torch.stack([obs[:, 0] - u, obs[:, 1] - v,
+                     torch.where(is_stereo, obs_ur - (u - bf * inv_z), zero)],
+                    dim=1)
+    if not with_jac:
+        return e, None, z, is_stereo
+    inv_z2 = inv_z * inv_z
+    J_proj = torch.stack([
+        torch.stack([fx * inv_z, zero, -fx * x * inv_z2], dim=1),
+        torch.stack([zero, fy * inv_z, -fy * y * inv_z2], dim=1),
+        torch.stack([fx * inv_z, zero, (-fx * x + bf) * inv_z2], dim=1),
+    ], dim=1)                                            # d(u,v,ur)/d(Xc)
+    neg_hat = torch.stack([
+        torch.stack([zero, z, -y], dim=1),
+        torch.stack([-z, zero, x], dim=1),
+        torch.stack([y, -x, zero], dim=1),
+    ], dim=1)
+    eye = torch.eye(3, dtype=Xc.dtype, device=Xc.device).expand_as(neg_hat)
+    J = -(J_proj @ torch.cat([eye, neg_hat], dim=2))   # [N,3,6]
+    row_mask = torch.tensor([1.0, 1.0, 0.0], device=Xc.device)[None, :, None]
+    J = J * torch.where(is_stereo[:, None, None], torch.ones_like(row_mask),
+                        row_mask)
+    return e, J, z, is_stereo
+
+
+def _rho(chi2, is_st, use_huber: bool):
+    """Robust cost per edge (Huber on chi2 in the first two rounds)."""
+    if not use_huber:
+        return chi2
+    delta = torch.where(is_st, torch.full_like(chi2, HUBER_DELTA_STEREO),
+                        torch.full_like(chi2, HUBER_DELTA_MONO))
+    huber = 2.0 * delta * torch.sqrt(chi2.clamp_min(1e-12)) - delta * delta
+    return torch.where(chi2 > delta * delta, huber, chi2)
+
+
+def pose_optimization(Tcw0, Xw, obs, inv_sigma2, valid, fx, fy, cx, cy,
+                      obs_ur=None, bf=0.0, n_rounds: int = 4,
+                      n_iters: int = 10):
+    """Returns (Tcw f32[4,4], inlier bool[N], n_inliers i64 tensor).
+
+    valid marks real correspondences; obs_ur (f32[N], -1 mono) adds stereo
+    right-column residuals. Points behind the camera are outliers."""
+    f32 = torch.float32
+    dev = Xw.device
+    Xw, obs, T0 = Xw.to(f32), obs.to(f32), Tcw0.to(f32)
+    if obs_ur is None:
+        obs_ur = torch.full((Xw.shape[0],), -1.0, dtype=f32, device=dev)
+    obs_ur = obs_ur.to(f32)
+    inlier = valid
+    eye6 = torch.eye(6, dtype=f32, device=dev)
+    args = (Xw, obs, obs_ur, bf, fx, fy, cx, cy)
+    for r in range(n_rounds):
+        use_huber = r < 2  # reference drops the kernel after round 2 (:393)
+        xi = torch.zeros(6, dtype=f32, device=dev)
+        lam = torch.full((), 1e-4, dtype=f32, device=dev)
+        for _ in range(n_iters):
+            e, J, z, is_st = _residuals(xi, T0, *args, with_jac=True)
+            chi2 = (e * e).sum(dim=1) * inv_sigma2
+            active = inlier & (z > 0)
+            if use_huber:
+                delta = torch.where(is_st,
+                                    torch.full_like(chi2, HUBER_DELTA_STEREO),
+                                    torch.full_like(chi2, HUBER_DELTA_MONO))
+                w_h = torch.clamp_max(delta / torch.sqrt(chi2.clamp_min(1e-12)),
+                                      1.0)
+            else:
+                w_h = torch.ones_like(chi2)
+            w = torch.where(active, w_h * inv_sigma2, torch.zeros_like(chi2))
+            H = torch.einsum("n,nif,nig->fg", w, J, J)
+            g = torch.einsum("n,nif,ni->f", w, J, e)
+            A = H + lam * torch.diag(torch.diagonal(H)) + 1e-9 * eye6
+            dx = torch.linalg.solve_ex(A, -g)[0]
+            zero = torch.zeros_like(chi2)
+            cost0 = torch.where(active, _rho(chi2, is_st, use_huber), zero).sum()
+            e1, _, z1, _ = _residuals(xi + dx, T0, *args, with_jac=False)
+            chi2_1 = (e1 * e1).sum(dim=1) * inv_sigma2
+            cost1 = torch.where(inlier & (z1 > 0),
+                                _rho(chi2_1, is_st, use_huber), zero).sum()
+            improved = cost1 < cost0
+            xi = torch.where(improved, xi + dx, xi)
+            lam = torch.where(improved, lam * 0.5, lam * 4.0).clamp(1e-10, 1e6)
+        T0 = lie.se3_exp(xi) @ T0
+        # Reclassify: raw chi2 against the 95% gates.
+        e, _, z, is_st = _residuals(torch.zeros(6, dtype=f32, device=dev), T0,
+                                    *args, with_jac=False)
+        chi2 = (e * e).sum(dim=1) * inv_sigma2
+        gate = torch.where(is_st, torch.full_like(chi2, CHI2_STEREO),
+                           torch.full_like(chi2, CHI2_MONO))
+        inlier = valid & (z > 0) & (chi2 <= gate)
+    return T0, inlier, inlier.sum()

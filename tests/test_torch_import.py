@@ -1,0 +1,62 @@
+"""The port stands alone (no jax, no JAX package) and its kernel wrappers
+dispatch on the tensor's device: a CPU tensor takes the plain version and
+touches nothing CUDA-only."""
+
+import os
+import subprocess
+import sys
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_IMPORT_ALL = """
+import importlib, pkgutil, sys
+import orb_slam_system_tpu_torch as pkg
+import chip_smoke
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for n in names:
+    importlib.import_module(n)
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.")
+             or m == "orb_slam_system_tpu" or m.startswith("orb_slam_system_tpu."))
+assert not bad, bad
+assert "triton" not in sys.modules
+print(len(names))
+"""
+
+_CPU_DISPATCH = """
+import sys
+import numpy as np, torch
+from orb_slam_system_tpu_torch.ops import brief, fast, patches
+from orb_slam_system_tpu_torch.utils import kernels
+rng = np.random.default_rng(0)
+img = torch.from_numpy(rng.integers(0, 256, (1, 64, 80)).astype(np.float32))
+assert torch.equal(fast.fast_score_nms(img, 19),
+                   fast.nms3x3(fast.fast_score_map(img, 19)))
+xy = torch.from_numpy(rng.integers(21, 43, (1, 16, 2)).astype(np.int32))
+b1, m1 = patches.gather_blur_moments(img, xy, 21)
+b2, m2 = patches.gather_blur_moments_plain(img, xy, 21)
+assert torch.equal(b1, b2) and torch.equal(m1, m2)
+ang = torch.from_numpy(rng.uniform(0, 6.28, (1, 16)).astype(np.float32))
+assert torch.equal(brief.brief_pack(b1, ang), brief.brief_pack_plain(b1, ang))
+assert kernels._lib is None, "the kernel library was loaded"
+assert all(v == 0 for v in kernels.LAUNCHES.values()), kernels.LAUNCHES
+assert "triton" not in sys.modules
+print("ok")
+"""
+
+
+def _run(code):
+    env = dict(os.environ, PYTHONPATH=REPO)
+    env.pop("JAX_PLATFORMS", None)
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+    return res.stdout
+
+
+def test_port_never_imports_jax():
+    assert int(_run(_IMPORT_ALL).split()[-1]) >= 20
+
+
+def test_wrappers_take_plain_path_on_cpu():
+    assert _run(_CPU_DISPATCH).split()[-1] == "ok"
