@@ -5,29 +5,44 @@
 
 Phases, each of which fails the run (exit code != 0) when it fails:
   1. print the card's name and power limit (nvidia-smi) and torch's CUDA;
-  2. build the three CUDA kernels from orb_slam_system_tpu_torch/csrc;
+  2. build the four CUDA kernels from orb_slam_system_tpu_torch/csrc (one
+     nvcc per source, in parallel);
   3. hold each kernel against its plain PyTorch version on the card, at the
      slice's shapes (all 8 pyramid levels of a rendered 640x480 frame for
-     kernel A, its 1024 keypoint slots for kernels B and C), and time both;
-  4. run the slice at full width: a 30-frame 640x480 orbit over the
+     kernel A, its 1024 keypoint slots for kernels B, C and D), and time
+     the kernel, its plain version and, where one PyTorch call computes
+     the same function, that call (torch.gather for kernel D); then run
+     the extractor's unfused route (kernel D) over 10 frames, with the
+     launch counts read around it, and hold frame 0 against the fused
+     route;
+  4. run the first slice at full width: a 30-frame 640x480 orbit over the
      textured plane (1000 features, 8 levels), map seeded from frame 0's
      depth at its true pose, frames 1-29 tracked through FrameBuilder.build
-     and fused_track_step;
-  5. check the result: frames accepted, pose error against ground truth,
-     frame 0's features on the card against the port's CPU path, and that
-     every kernel was launched by phase 4.
-The second-to-last line is a JSON object with each kernel's launches, error
-and times; the last line is {"ok": true, "device": {...}}. Without CUDA, or
-without the package beside it, the script exits non-zero and prints no
-result.
+     and fused_track_step; check frames accepted, pose error against
+     ground truth, and frame 0's features on the card against the port's
+     CPU path;
+  5. run the System (the main path): System.track_monocular over a
+     60-frame 640x480 orbit through drivers/mono_synthetic.run: two-view
+     initialization on the 2048-slot builder, keyframes, local mapping;
+     print per-frame and
+     per-stage times, a profiler count of one keyframe insertion and one
+     local BA, and check the reference's bars (state OK, >= 3 keyframes,
+     > 150 map points, ATE < 3 cm) plus >= 90% of the frames after
+     initialization tracked, and that every kernel of the path launched.
+The second-to-last line is a JSON object with each kernel's launches, error,
+times and bound; the last line is {"ok": true, "device": {...}}. Without
+CUDA, or without the package beside it, the script exits non-zero and prints
+no result.
 """
 
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -39,6 +54,20 @@ MIN_ACCEPTED = 27          # of the 29 tracked frames
 MAX_POS_ERR_M = 0.01
 MAX_ROT_ERR_DEG = 0.25
 MAX_ANGLE_BIN_FLIPS = 0.01  # share of keypoints, card vs CPU extraction
+N_UNFUSED_FRAMES = 10
+SYSTEM_FRAMES = 60
+MIN_TRACKED_SHARE = 0.9     # of the System's frames after initialization
+MAX_ATE_M = 0.03            # tests/test_e2e_mono.py bar
+# H100 SXM peaks (NVIDIA data sheet, dense): device memory bytes/s and
+# float32 operations/s outside the tensor cores.
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+
+
+def bound_ms(n_bytes: float, n_ops: float):
+    """Least time the card could take: (ms, "bytes" or "operations")."""
+    t_b, t_o = n_bytes / HBM_BYTES_PER_S, n_ops / F32_OPS_PER_S
+    return 1e3 * max(t_b, t_o), ("bytes" if t_b >= t_o else "operations")
 
 
 def fail(msg: str) -> None:
@@ -70,16 +99,21 @@ def pose_error(T, T_gt):
     return float(np.linalg.norm(C - C_gt)), float(np.degrees(ang))
 
 
-def profile_device(torch, label: str, fn, wall_ms: float) -> None:
+def profile_device(torch, label: str, fn, wall_ms) -> None:
     """Print how many device kernels one call of fn launches, their summed
     device time (torch.profiler), and the device's idle share against the
-    unprofiled wall time wall_ms. A measurement only: if the profiler sees
-    nothing here, say so and go on."""
+    unprofiled wall time wall_ms (None: the host-clock time of the profiled
+    call itself, which the profiler inflates). A measurement only: if the
+    profiler sees nothing here, say so and go on."""
     from torch.profiler import ProfilerActivity, profile
     try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
+        if wall_ms is None:
+            wall_ms = 1e3 * (time.perf_counter() - t0)
         evs = [e for e in prof.key_averages()
                if str(e.device_type).endswith("CUDA")]
         n = sum(e.count for e in evs)
@@ -100,7 +134,8 @@ def main() -> None:
         fail("torch.cuda.is_available() is false: this run needs a GPU")
     try:
         from orb_slam_system_tpu_torch.config import (CameraConfig, ORBConfig,
-                                                      SlamConfig)
+                                                      SlamConfig, TrackingState)
+        from orb_slam_system_tpu_torch.drivers import mono_synthetic
         from orb_slam_system_tpu_torch.dataio.synthetic import (
             PlanarSceneRenderer, make_texture, orbit_trajectory)
         from orb_slam_system_tpu_torch.models.frame import FrameBuilder
@@ -161,10 +196,14 @@ def main() -> None:
     ms_a = cuda_ms(torch, lambda: [fast.fast_score_nms(l, 19) for l in levels])
     plain_a = cuda_ms(torch, lambda: [fast.nms3x3(fast.fast_score_map(l, 19))
                                       for l in levels])
+    # Each level read and written once; per pixel 16 differences, ~300
+    # min/max of the segment test and 9 NMS max (csrc/fast_score_nms.cu).
+    px = sum(l.numel() for l in levels)
     report["fast_score_nms"] = dict(
         source="orb_slam_system_tpu_torch/csrc/fast_score_nms.cu",
         replaces="orb_slam_system_tpu/ops/fast_pallas.py:108",
-        max_abs_err=max(errs_a), ms=ms_a, plain_ms=plain_a)
+        max_abs_err=max(errs_a), ms=ms_a, plain_ms=plain_a,
+        bound=bound_ms(8.0 * px, 330.0 * px), library_ms=None)
     print(f"kernel A fast_score_nms: bit-exact on {len(levels)} levels "
           f"{[tuple(l.shape[1:]) for l in levels]}; {ms_a:.4f} ms "
           f"(plain {plain_a:.4f} ms) per frame, {card}", flush=True)
@@ -181,10 +220,19 @@ def main() -> None:
     ms_b = cuda_ms(torch, lambda: patches.gather_blur_moments(canvas, xy_all, 21))
     plain_b = cuda_ms(torch, lambda: patches.gather_blur_moments_plain(
         canvas, xy_all, 21))
+    n_kp = xy_all.shape[1]
+    pb_side = kb.shape[-1]
     report["gather_blur_moments"] = dict(
         source="orb_slam_system_tpu_torch/csrc/gather_blur_moments.cu",
         replaces="orb_slam_system_tpu/ops/gather_pallas.py:336",
-        max_abs_err=mom_err, ms=ms_b, plain_ms=plain_b)
+        max_abs_err=mom_err, ms=ms_b, plain_ms=plain_b,
+        # Canvas and centres read once, blurred patches and moments
+        # written once; row + column blur passes and the moments.
+        bound=bound_ms(4.0 * (canvas.numel() + xy_all.numel() + kb.numel()
+                              + km.numel()),
+                       n_kp * (2 * 7 * pb_side * 43 + 2 * 7 * pb_side ** 2
+                               + 4 * 31 * 31)),
+        library_ms=None)
     n_bins_b = int((_angle_bins(angles_from_moments(km))
                     != _angle_bins(angles_from_moments(pm))).sum())
     print(f"kernel B gather_blur_moments: canvas {tuple(canvas.shape)}, "
@@ -202,9 +250,66 @@ def main() -> None:
     report["brief_pack"] = dict(
         source="orb_slam_system_tpu_torch/csrc/brief_pack.cu",
         replaces="orb_slam_system_tpu/ops/brief_pallas.py:68",
-        max_abs_err=0.0, ms=ms_c, plain_ms=plain_c)
+        max_abs_err=0.0, ms=ms_c, plain_ms=plain_c,
+        # Blurred patches and angles read once, words written once; two
+        # bf16 roundings and one compare per test.
+        bound=bound_ms(4.0 * (pb.numel() + ang.numel() + kc.numel()),
+                       3.0 * 256 * n_kp),
+        library_ms=None)
     print(f"kernel C brief_pack: {tuple(kc.shape)} words bit-exact; "
           f"{ms_c:.4f} ms (plain {plain_c:.4f} ms), {card}", flush=True)
+
+    kd = patches.gather_patches(canvas, xy_all, 21)
+    pd = patches.gather_patches_plain(canvas, xy_all, 21)
+    if not torch.equal(kd, pd):
+        fail(f"kernel D differs in {int((kd != pd).sum())} values")
+    Bc, Hc, Wc = canvas.shape
+    flat = patches.gather_flat_index(xy_all, 21, Hc, Wc)
+    flat_canvas = canvas.reshape(Bc, Hc * Wc)
+    lib = torch.gather(flat_canvas, 1, flat).reshape(kd.shape)
+    if not torch.equal(lib, kd):
+        fail("torch.gather over the flat indices differs from kernel D")
+    ms_d = cuda_ms(torch, lambda: patches.gather_patches(canvas, xy_all, 21))
+    plain_d = cuda_ms(torch, lambda: patches.gather_patches_plain(
+        canvas, xy_all, 21))
+    lib_d = cuda_ms(torch, lambda: torch.gather(flat_canvas, 1, flat))
+    report["gather_patches"] = dict(
+        source="orb_slam_system_tpu_torch/csrc/gather_patches.cu",
+        replaces="orb_slam_system_tpu/ops/gather_pallas.py:113",
+        max_abs_err=float((kd - pd).abs().max()), ms=ms_d, plain_ms=plain_d,
+        # A copy: canvas and centres read once, patches written once.
+        bound=bound_ms(4.0 * (canvas.numel() + xy_all.numel() + kd.numel()),
+                       0.0),
+        library_ms=lib_d)
+    print(f"kernel D gather_patches: {tuple(kd.shape)} bit-exact; "
+          f"{ms_d:.4f} ms (plain {plain_d:.4f} ms, torch.gather over "
+          f"precomputed indices {lib_d:.4f} ms), {card}", flush=True)
+
+    # The extractor's unfused route (kernel D); counts read around it.
+    fb_unfused = FrameBuilder(cfg, dev, fused_gather=False)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    unfused = [fb_unfused.build(frames[i], i / 30.0)
+               for i in range(N_UNFUSED_FRAMES)]
+    torch.cuda.synchronize()
+    unfused_launches = dict(kernels.LAUNCHES)
+    if unfused_launches["gather_patches"] <= 0:
+        fail("the unfused route did not launch kernel D")
+    got_u = unfused[0].packed.cpu()
+    ref_f = fb.build(frames[0], 0.0).packed.cpu()
+    if not torch.equal(got_u[:, [0, 1, 4, 6, 7]], ref_f[:, [0, 1, 4, 6, 7]]):
+        fail("unfused route: keypoints differ from the fused route")
+    flips_u = _angle_bins(got_u[:, 5]) != _angle_bins(ref_f[:, 5])
+    diff_u = (got_u[:, 8:16].view(torch.int32)
+              != ref_f[:, 8:16].view(torch.int32)).any(dim=1)
+    if bool((diff_u & ~flips_u).any()):
+        fail("unfused route: descriptor bits differ beyond angle-bin flips")
+    if int(flips_u.sum()) > MAX_ANGLE_BIN_FLIPS * ex.n_slots:
+        fail(f"unfused route: {int(flips_u.sum())} angle-bin flips")
+    print(f"unfused route over {N_UNFUSED_FRAMES} frames: launches "
+          f"{unfused_launches}; frame 0 vs the fused route: keypoints "
+          f"identical, {int(flips_u.sum())} angle-bin flips, descriptors "
+          f"equal elsewhere", flush=True)
 
     # 4. The slice at full width; the counters count only this phase.
     torch.cuda.synchronize()
@@ -250,7 +355,6 @@ def main() -> None:
           f"{max(ms_track):.3f} (frame 1 includes first-call set-up), {card}",
           flush=True)
 
-    # 5. Checks.
     if accepted < MIN_ACCEPTED:
         fail(f"only {accepted} of {N_FRAMES - 1} frames accepted "
              f"(need {MIN_ACCEPTED})")
@@ -278,8 +382,8 @@ def main() -> None:
         fail(f"{int(flips.sum())} angle-bin flips against the CPU path")
     print(f"frame 0 vs the CPU path: keypoints identical, {int(flips.sum())} "
           f"angle-bin flips, descriptors equal elsewhere", flush=True)
-    for name, n in launches.items():
-        if n <= 0:
+    for name in ("fast_score_nms", "gather_blur_moments", "brief_pack"):
+        if launches[name] <= 0:
             fail(f"kernel {name} was not launched by the slice")
     print(f"launches in the slice: {launches}", flush=True)
 
@@ -306,12 +410,83 @@ def main() -> None:
     profile_device(torch, "one pose optimization (4x10 LM, 1024 edges)", lm,
                    1e3 * (time.perf_counter() - t0))
 
+    # 5. The System, the main path; the counters count only this phase.
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as out_dir:
+        slam, ate = mono_synthetic.run(SYSTEM_FRAMES, out_dir, 1000, W, H,
+                                       device="cuda", verbose=True)
+        n_traj = len(open(os.path.join(out_dir, "CameraTrajectory.txt")).readlines())
+    torch.cuda.synchronize()
+    system_launches = dict(kernels.LAUNCHES)
+    recs = slam.telemetry.records
+    ok_state = int(TrackingState.OK)
+    init_at = next((i for i, r in enumerate(recs) if r["state"] == ok_state),
+                   None)
+    if init_at is None:
+        fail("the System never initialized")
+    post = recs[init_at + 1:]
+    tracked_share = (sum(r["state"] == ok_state for r in post)
+                     / max(len(post), 1))
+    track_ms = [r["track_ms"] for r in recs]
+    kf_map_ms = [r["mapping_ms"] for r in recs if r["mapping_ms"] > 1.0]
+    print(f"system: {SYSTEM_FRAMES} frames in {time.perf_counter() - t0:.1f} s, "
+          f"initialized at frame {init_at}, tracked {100 * tracked_share:.1f}% "
+          f"of the {len(post)} frames after it; {slam.arena.n_keyframes()} "
+          f"keyframes, {slam.arena.n_points()} map points, {n_traj} "
+          f"trajectory lines; ATE RMSE (Sim3-aligned) {100 * ate:.3f} cm; "
+          f"{card}", flush=True)
+    print(f"system ms per frame (host clock, each ends in a device fetch): "
+          f"track median {statistics.median(track_ms):.3f} max "
+          f"{max(track_ms):.3f}; mapping median over all frames "
+          f"{statistics.median(r['mapping_ms'] for r in recs):.3f}, over the "
+          f"{len(kf_map_ms)} frames that inserted keyframes "
+          f"{statistics.median(kf_map_ms) if kf_map_ms else 0.0:.3f} max "
+          f"{max(kf_map_ms) if kf_map_ms else 0.0:.3f}; {card}", flush=True)
+    for label, timer in (("tracking", slam.tracker.stage_ms),
+                         ("mapping", slam.local_mapper.stage_ms)):
+        stages = ", ".join(
+            f"{k} {v:.1f} ms total / {len(timer.history[k])} calls / "
+            f"median {statistics.median(timer.history[k]):.3f}"
+            for k, v in sorted(timer.ms.items()))
+        print(f"system {label} stages: {stages}", flush=True)
+    print(f"launches in the system run: {system_launches}", flush=True)
+    mapper = slam.local_mapper
+    kf = slam.arena.kfs[max(slam.arena.kfs)]
+    mapper.insert_keyframe(kf.id)
+    profile_device(torch, "one keyframe insertion (process_pending on the "
+                   "newest keyframe, re-inserted)", mapper.process_pending,
+                   None)
+    if kf.id in slam.arena.kfs:
+        profile_device(torch, "one local BA (newest keyframe's window)",
+                       lambda: mapper.local_ba(kf), None)
+    if slam.get_tracking_state() != TrackingState.OK:
+        fail(f"system ends {slam.get_tracking_state().name}, not OK")
+    if slam.arena.n_keyframes() < 3 or slam.arena.n_points() <= 150:
+        fail(f"system map too small: {slam.arena.n_keyframes()} keyframes, "
+             f"{slam.arena.n_points()} points")
+    if not ate < MAX_ATE_M:
+        fail(f"system ATE {100 * ate:.3f} cm >= {100 * MAX_ATE_M:g} cm")
+    if tracked_share < MIN_TRACKED_SHARE:
+        fail(f"system tracked {100 * tracked_share:.1f}% of the frames after "
+             f"initialization (< {100 * MIN_TRACKED_SHARE:g}%)")
+    for name in ("fast_score_nms", "gather_blur_moments", "brief_pack"):
+        if system_launches[name] <= 0:
+            fail(f"kernel {name} was not launched by the system run")
+
+    # Launches of each kernel on the path that runs it: the System for A, B
+    # and C, the extractor's unfused route for D.
+    path_launches = dict(system_launches,
+                         gather_patches=unfused_launches["gather_patches"])
     print(card, flush=True)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": r["source"],
-         "replaces": r["replaces"], "launches": launches[name],
+         "replaces": r["replaces"], "launches": path_launches[name],
          "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-         "plain_ms": r["plain_ms"]} for name, r in report.items()]}),
+         "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
+         "bound_by": r["bound"][1], "library_ms": r["library_ms"]}
+        for name, r in report.items()]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,7 +9,9 @@ packed f32[N, 16] tensor there, in the JAX package's layout:
     6 octave   7 valid   8:16 the 8 descriptor words, bit-cast to f32
 
 The tracking programs consume that tensor directly; the host copy
-(`Frame.feats`) is made lazily.
+(`Frame.feats`, the map arena's FrameFeatures) is made lazily. A Frame also
+carries the tracker's per-frame state: pose, map-point associations,
+outlier flags and the pose relative to its reference keyframe.
 """
 
 from __future__ import annotations
@@ -21,39 +23,36 @@ import numpy as np
 import torch
 
 from orb_slam_system_tpu_torch.config import SlamConfig
+from orb_slam_system_tpu_torch.mapping.arena import FrameFeatures
 from orb_slam_system_tpu_torch.ops.extractor import ORBExtractor
 from orb_slam_system_tpu_torch.utils import camera as cam_ops
 from orb_slam_system_tpu_torch.utils.precision import set_f32_policy
 
 
 @dataclasses.dataclass
-class FrameFeatures:
-    """Host copy of a frame's padded feature arrays (level-0 coords); the
-    JAX package's mapping.arena.FrameFeatures, monocular fields."""
-
-    xy: np.ndarray        # f32[N,2] raw pixel coords
-    xy_und: np.ndarray    # f32[N,2] undistorted pixel coords
-    response: np.ndarray  # f32[N]
-    angle: np.ndarray     # f32[N]
-    octave: np.ndarray    # i32[N]
-    desc: np.ndarray      # u32[N,8]
-    valid: np.ndarray     # bool[N]
-
-    @property
-    def n_slots(self) -> int:
-        return self.xy.shape[0]
-
-
-@dataclasses.dataclass
 class Frame:
-    """One frame's padded feature state; `packed` stays on the device.
-    (Pose and map-point bookkeeping live with the caller for now; see
-    models/tracking.fused_track_step.)"""
+    """One frame's padded feature state (`packed` stays on the device) and
+    the tracker's bookkeeping for it."""
 
     id: int
     timestamp: float
     packed: torch.Tensor                    # f32[N, 16] on the device
     feats_host: Optional[FrameFeatures] = None
+    Tcw: Optional[np.ndarray] = None        # f32[4,4] world->camera
+    mp_ids: Optional[np.ndarray] = None     # i64[N] map point per feature
+    outlier: Optional[np.ndarray] = None    # bool[N]
+    ref_kf_id: int = -1
+    # Pose relative to ref_kf_id when the frame was finalized (reference
+    # mlRelativeFramePoses): the next frame re-anchors the motion model
+    # through it after local BA moved the reference keyframe.
+    Tcr_ref: Optional[np.ndarray] = None
+
+    def __post_init__(self):
+        n = self.n_slots
+        if self.mp_ids is None:
+            self.mp_ids = np.full(n, -1, np.int64)
+        if self.outlier is None:
+            self.outlier = np.zeros(n, bool)
 
     @property
     def n_slots(self) -> int:
@@ -67,18 +66,31 @@ class Frame:
                 self.packed.cpu().numpy())
         return self.feats_host
 
+    @property
+    def n_valid(self) -> int:
+        return int(self.feats.valid.sum())
+
 
 class FrameBuilder:
     """Shape-specialized frame construction (extraction + undistortion) on
-    one device."""
+    one device. n_features overrides the config's budget (the monocular
+    initializer extracts twice as many); fused_gather picks the
+    extractor's patch route (see ops/extractor.py)."""
 
-    def __init__(self, cfg: SlamConfig, device):
+    def __init__(self, cfg: SlamConfig, device="cuda",
+                 n_features: Optional[int] = None, fused_gather: bool = True):
         set_f32_policy()
         self.cfg = cfg
         self.device = torch.device(device)
         cam = cfg.camera
-        self.extractor = ORBExtractor(cfg.orb, cam.height, cam.width)
+        orb = cfg.orb
+        if n_features is not None:
+            orb = dataclasses.replace(orb, n_features=n_features)
+        self.extractor = ORBExtractor(orb, cam.height, cam.width,
+                                      fused_gather=fused_gather)
         self.scale_factors = self.extractor.scales
+        self.sigma2 = (self.scale_factors ** 2).astype(np.float32)
+        self.inv_sigma2 = (1.0 / self.sigma2).astype(np.float32)
         self.bounds = cam_ops.compute_image_bounds(
             cam.width, cam.height, cam.fx, cam.fy, cam.cx, cam.cy,
             cam.k1, cam.k2, cam.p1, cam.p2, cam.k3)

@@ -1,7 +1,10 @@
 """Fused per-frame tracking programs on the device.
 
 Port of orb_slam_system_tpu/models/track_device.py (motion_step,
-localmap_step, fused_step; the pipelined chain_step ports later):
+localmap_step, fused_step; the pipelined chain_step ports later). The
+tracker runs fused_step on a steady frame and falls back to motion_step
+(then a reference-keyframe match) and localmap_step when the fused result
+is weak:
 
   * motion stage: motion-model projection search (narrow and widened window
     from ONE distance matrix, the reference's `if(nmatches<20) search again
@@ -26,7 +29,8 @@ from orb_slam_system_tpu_torch.ops import frustum as frustum_ops
 from orb_slam_system_tpu_torch.ops import matching
 from orb_slam_system_tpu_torch.ops.hamming import distance_matrix
 from orb_slam_system_tpu_torch.solvers.pose_opt import pose_optimization
-from orb_slam_system_tpu_torch.utils.interop import local_block_from_numpy
+from orb_slam_system_tpu_torch.utils.interop import (local_block_from_numpy,
+                                                     to_device)
 from orb_slam_system_tpu_torch.utils.precision import set_f32_policy
 
 
@@ -70,7 +74,7 @@ class TrackPrograms:
     one device."""
 
     def __init__(self, cfg: SlamConfig, n_slots: int, local_slots: int,
-                 bounds, device):
+                 bounds, device="cuda"):
         set_f32_policy()
         self.device = torch.device(device)
         self.cfg = cfg
@@ -188,6 +192,51 @@ class TrackPrograms:
         ])
 
     # ---- host wrappers: one upload, one fetch, numpy outputs ---------------
+
+    def _tensor(self, a):
+        return to_device(a, self.device)
+
+    def motion_step(self, proj, ok, pos_last, packed_last, packed_cur,
+                    Tcw_pred, th=15.0):
+        """Motion-model search + pose LM (reference TrackWithMotionModel).
+        Numpy inputs except the packed frames. Returns (T, best_j, matched,
+        inlier, n_in, n_matched, n_valid_cur)."""
+        n = len(ok)
+        T, best_j, matched, inlier, n_in, cur_valid = self.motion_core(
+            self._tensor(proj), self._tensor(ok),
+            self._tensor(pos_last), packed_last, packed_cur,
+            self._tensor(Tcw_pred), torch.tensor(float(th), device=self.device))
+        f = torch.float32
+        out = torch.cat([
+            T.reshape(-1), best_j.to(f), matched.to(f), inlier.to(f),
+            torch.stack([n_in.to(f), matched.sum().to(f),
+                         cur_valid.sum().to(f)])]).cpu().numpy()
+        return (out[:16].reshape(4, 4).astype(np.float32),
+                out[16:16 + n].astype(np.int64),
+                out[16 + n:16 + 2 * n] > 0.5,
+                out[16 + 2 * n:16 + 3 * n] > 0.5,
+                int(out[16 + 3 * n]), int(out[16 + 3 * n + 1]),
+                int(out[16 + 3 * n + 2]))
+
+    def localmap_step(self, pos, normal, mind, maxd, lm_desc, lm_valid,
+                      Xw_pre, ok_pre, packed_cur, already, Tcw):
+        """Local-map search + pose LM (reference TrackLocalMap). Numpy
+        inputs except the packed frame; lm_desc is u32[P,8]. Returns (T,
+        idx2, visible, inlier, n_in)."""
+        p, n = self._p, len(ok_pre)
+        block = local_block_from_numpy(pos, normal, mind, maxd, lm_desc,
+                                       lm_valid, self.device)
+        T, idx2, visible, inlier, n_in = self.localmap_core(
+            *block, self._tensor(Xw_pre), self._tensor(ok_pre),
+            packed_cur, self._tensor(already), self._tensor(Tcw))
+        f = torch.float32
+        out = torch.cat([T.reshape(-1), idx2.to(f), visible.to(f),
+                         inlier.to(f), n_in.to(f).reshape(1)]).cpu().numpy()
+        return (out[:16].reshape(4, 4).astype(np.float32),
+                out[16:16 + p].astype(np.int64),
+                out[16 + p:16 + 2 * p] > 0.5,
+                out[16 + 2 * p:16 + 2 * p + n] > 0.5,
+                int(out[16 + 2 * p + n]))
 
     def fused_step(self, proj, ok, pos_last, packed_last, packed_cur,
                    Tcw_pred, lm_pos, lm_normal, lm_mind, lm_maxd, lm_desc,

@@ -1,8 +1,21 @@
-"""The start of the tracker: map seeding from depth and the fused step.
+"""Tracking: the per-frame state machine, and the steady-state step.
 
-Two pieces of the JAX package's models/tracking.py, as plain functions with
-no map arena and no state machine; both are numpy at their boundary, so
-they drive the JAX package's TrackPrograms as well as this port's.
+Port of orb_slam_system_tpu/models/tracking.py (reference Tracking),
+monocular, with the synchronous local mapper: grayscale frames in, camera
+poses out. Tracker drives two-view initialization (the mixin in
+models/tracking_init.py, with the keyframe policy), the fused steady-state
+step with its fallbacks (motion model, then the reference keyframe, then
+the local map), keyframe creation, reset and the trajectory log.
+
+Not in this port yet, and simply not called: relocalization (a LOST frame
+stays LOST; the JAX tracker's relocalization returns False the same way
+while place recognition is not ready), place recognition, the pipelined
+chain mode, localization mode, stereo and RGB-D. With mapping synchronous
+and no loop closer, no map-wide pose rewrite can land inside a frame, so
+the JAX package's correction lock and pose-epoch invariant have nothing to
+guard here.
+
+Two plain functions from the first slice stay beside the Tracker:
 
   * `seed_map_from_depth`: RGB-D/stereo-style initialization (reference
     StereoInitialization; Tracker.stereo_initialization) of a single
@@ -11,20 +24,37 @@ they drive the JAX package's TrackPrograms as well as this port's.
     update_normal_and_depth), and lay the points out as the padded
     local-map block the tracking programs take (Tracker._gather_local_points,
     with the 0.8/1.2 distance band).
-  * `fused_track_step`: the body of Tracker.track_fused: velocity
-    prediction, projection of the last frame's points, the last-frame ->
-    local-block map, ONE fused_step call, the acceptance gates and the
-    association/outlier bookkeeping. The arena's n_visible / n_found
+  * `fused_track_step`: the body of Tracker.track_fused with no arena:
+    velocity prediction, projection of the last frame's points, the last
+    frame -> local-block map, ONE fused_step call, the acceptance gates and
+    the association/outlier bookkeeping. The arena's n_visible / n_found
     counters are not kept.
+Both are numpy at their boundary, so they drive the JAX package's
+TrackPrograms as well as this port's.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple, Optional
 
 import numpy as np
+import torch
+
+from orb_slam_system_tpu_torch.config import SlamConfig, TrackingState
+from orb_slam_system_tpu_torch.dataio.trajectory import _resolve_ref_pose
+from orb_slam_system_tpu_torch.mapping.arena import MapArena
+from orb_slam_system_tpu_torch.models.frame import Frame, FrameBuilder
+from orb_slam_system_tpu_torch.models.track_device import TrackPrograms, unpack
+from orb_slam_system_tpu_torch.models.tracking_init import MonoInitAndKeyframes
+from orb_slam_system_tpu_torch.ops import matching
+from orb_slam_system_tpu_torch.solvers.initializer import make_ransac_sets
+from orb_slam_system_tpu_torch.utils.interop import to_device
+from orb_slam_system_tpu_torch.utils.metrics import StageTimer
+from orb_slam_system_tpu_torch.utils.precision import set_f32_policy
 
 LOCAL_MAP_SLOTS = 4096     # padded local-map point budget for device calls
+MAX_LOCAL_KEYFRAMES = 80   # reference src/Tracking.cc:759-761
 
 
 class LocalMap(NamedTuple):
@@ -159,3 +189,487 @@ def fused_track_step(programs, packed_last, packed_cur, last_Tcw,
     return TrackResult(Tcw=T2, mp_ids=mp_ids, outlier=outlier,
                        n_matched=n_matched, n_in1=n_in1, n_in2=n_in2,
                        n_valid=n_valid)
+
+
+@dataclasses.dataclass
+class TrajectoryEntry:
+    """Per-frame relative pose record (reference mlRelativeFramePoses)."""
+
+    Tcr: np.ndarray
+    ref_kf_id: int
+    timestamp: float
+    lost: bool
+
+
+class Tracker(MonoInitAndKeyframes):
+    """Reference Tracking, monocular, on one device (the CPU only when the
+    caller asks for it)."""
+
+    def __init__(self, cfg: SlamConfig, arena: MapArena, local_mapper,
+                 device="cuda"):
+        set_f32_policy()
+        self.cfg = cfg
+        self.arena = arena
+        self.local_mapper = local_mapper
+        self.device = torch.device(device)
+        self.state = TrackingState.NO_IMAGES_YET
+        self.builder = FrameBuilder(cfg, device)
+        # Mono init uses a 2x-features extractor (reference Tracking.cc:76-82).
+        self.init_builder = FrameBuilder(
+            cfg, device, n_features=2 * cfg.orb.n_features)
+        self.programs = TrackPrograms(
+            cfg, self.builder.extractor.n_slots, LOCAL_MAP_SLOTS,
+            self.builder.bounds, device)
+        self.scale_factors = self.builder.scale_factors
+        self.inv_sigma2 = self.builder.inv_sigma2
+        self.velocity: Optional[np.ndarray] = None
+        self.last_frame: Optional[Frame] = None
+        self.current: Optional[Frame] = None
+        self.init_ref: Optional[Frame] = None
+        self.prev_matched: Optional[np.ndarray] = None
+        self.ref_kf_id = -1
+        self.last_kf_frame_id = -1
+        self.last_kf_id = -1
+        self.trajectory: list[TrajectoryEntry] = []
+        self.max_frames = int(cfg.camera.fps)
+        self.min_frames = 0
+        self._ransac = self._tensor(make_ransac_sets(
+            self.init_builder.extractor.n_slots, 200, 8, seed=0))
+        self.n_inliers = 0
+        self.local_kf_ids: list[int] = []
+        # ((local keyframe ids, arena.version) -> padded local-map block)
+        self._local_block_cache = None
+        # Wall time per stage of the steady-state path.
+        self.stage_ms = StageTimer()
+
+    def _tensor(self, a) -> torch.Tensor:
+        return to_device(a, self.device)
+
+    # ---- entry point -------------------------------------------------------
+
+    def grab_monocular(self, img: np.ndarray, timestamp: float):
+        """Reference GrabImageMonocular + Track. Returns Tcw (4x4) or None."""
+        self.current = self.build_frame(img, timestamp)
+        self.track()
+        return None if self.current.Tcw is None else self.current.Tcw.copy()
+
+    def build_frame(self, img: np.ndarray, timestamp: float) -> Frame:
+        """Frame construction with the builder the state calls for (the
+        2x-features one until the map is initialized)."""
+        builder = (self.init_builder
+                   if self.state in (TrackingState.NO_IMAGES_YET,
+                                     TrackingState.NOT_INITIALIZED)
+                   else self.builder)
+        return builder.build(img, timestamp)
+
+    def track(self):
+        if self.state == TrackingState.NO_IMAGES_YET:
+            self.state = TrackingState.NOT_INITIALIZED
+        if self.state == TrackingState.NOT_INITIALIZED:
+            self.monocular_initialization()
+            self._store_trajectory()
+            self.last_frame = self.current
+            return
+        ok = False
+        fused_done = False
+        if self.state == TrackingState.OK:
+            self._reanchor_last_frame()
+            with self.stage_ms.stage("replace_updated"):
+                self._replace_updated_points(self.last_frame)
+            if self.track_fused():
+                ok = fused_done = True
+            else:
+                if self.velocity is not None:
+                    ok = self.track_with_motion_model()
+                if not ok:
+                    ok = self.track_reference_keyframe()
+        # A LOST frame would relocalize here; relocalization is not ported,
+        # so the frame stays LOST.
+        if ok and not fused_done:
+            ok = self.track_local_map()
+        self.state = TrackingState.OK if ok else TrackingState.LOST
+        if ok:
+            # Motion model (reference :216-221).
+            if self.last_frame is not None and self.last_frame.Tcw is not None:
+                self.velocity = self.current.Tcw @ np.linalg.inv(
+                    self.last_frame.Tcw)
+            else:
+                self.velocity = None
+            self.current.mp_ids[self.current.outlier] = -1
+            with self.stage_ms.stage("kf_decision"):
+                need_kf = self.need_new_keyframe()
+            if need_kf:
+                with self.stage_ms.stage("kf_create"):
+                    self.create_new_keyframe()
+        elif self.arena.n_keyframes() <= 5:
+            # Lost soon after initialization -> full reset (reference
+            # :229-233, Tracking::Reset :887-927).
+            self.reset()
+        self._store_trajectory()
+        self.last_frame = self.current
+
+    # ---- frame-to-frame tracking -------------------------------------------
+
+    def _replace_updated_points(self, frame: Optional[Frame]):
+        """Reference CheckReplacedInLastFrame + MapPoint::Replace: rebind
+        each of the last frame's associations to the surviving point by
+        following the arena's replaced_by chain; culled points drop to -1."""
+        if frame is None or frame.mp_ids is None:
+            return
+        for k, mid in enumerate(frame.mp_ids):
+            mid = int(mid)
+            if mid < 0 or mid in self.arena.mps:
+                continue
+            seen = set()
+            cur = mid
+            while cur not in self.arena.mps:
+                rec = self.arena.dead_mps.get(cur)
+                nxt = rec.replaced_by if rec is not None else -1
+                if nxt < 0 or nxt in seen:
+                    cur = -1
+                    break
+                seen.add(cur)
+                cur = nxt
+            frame.mp_ids[k] = cur
+
+    def _gather_frame_points(self, frame: Frame):
+        """Positions f32[N,3] and presence bool[N] of the map points attached
+        to a frame's features (vectorized arena lookup)."""
+        pos = np.zeros((frame.n_slots, 3), np.float32)
+        rows, ok = self.arena.lookup_points(frame.mp_ids)
+        if ok.any():
+            pos[ok] = self.arena.point_columns()[1][rows[ok]]
+        return pos, ok
+
+    def _reanchor_last_frame(self):
+        """UpdateLastFrame's pose re-anchor (reference Tracking.cc:475-481):
+        Tcw_last = Tcr_ref @ Tcw_ref(now), so the motion model follows
+        local BA's moves of the reference keyframe; a culled reference is
+        resolved through the spanning tree as trajectory export does."""
+        last = self.last_frame
+        if (last is None or last.Tcw is None or last.Tcr_ref is None
+                or last.ref_kf_id < 0):
+            return
+        ref = self.arena.kfs.get(last.ref_kf_id)
+        if ref is None:
+            T_extra, live = _resolve_ref_pose(self.arena, last.ref_kf_id)
+            if live is None:
+                return
+            last.Tcw = (last.Tcr_ref @ T_extra @ live.Tcw).astype(np.float32)
+            return
+        last.Tcw = (last.Tcr_ref @ ref.Tcw).astype(np.float32)
+
+    def _project(self, pos, Tcw):
+        """Pinhole projection of world points under Tcw (host): (proj
+        f32[N,2], in front bool[N])."""
+        cam = self.cfg.camera
+        Xc = pos @ Tcw[:3, :3].T + Tcw[:3, 3]
+        z = Xc[:, 2]
+        with np.errstate(divide="ignore", invalid="ignore"):
+            proj = Xc[:, :2] / np.where(np.abs(z[:, None]) < 1e-9, 1e-9,
+                                        z[:, None])
+        return proj * [cam.fx, cam.fy] + [cam.cx, cam.cy], z > 0
+
+    def track_with_motion_model(self) -> bool:
+        """Reference TrackWithMotionModel (:510-547), outlier pruning fixed."""
+        cur, last = self.current, self.last_frame
+        Tcw_pred = (self.velocity @ last.Tcw).astype(np.float32)
+        pos, ok = self._gather_frame_points(last)
+        if ok.sum() < 10:
+            return False
+        proj, front = self._project(pos, Tcw_pred)
+        T, best_j, matched, inlier, n_in, n_matched, _ = \
+            self.programs.motion_step(proj, ok & front, pos, last.packed,
+                                      cur.packed, Tcw_pred, th=15.0)
+        if n_matched < 20:
+            return False
+        # Edge r maps last slot r to current slot best_j[r] (one row per
+        # column after the search's dedupe).
+        cur.mp_ids[:] = -1
+        cur.mp_ids[best_j[matched]] = last.mp_ids[matched]
+        cur.Tcw = T
+        out = np.zeros(cur.n_slots, bool)
+        out[best_j[matched & ~inlier]] = True
+        cur.outlier = out
+        cur.mp_ids[out] = -1
+        self.n_inliers = n_in
+        return n_in >= 10
+
+    def track_reference_keyframe(self) -> bool:
+        """Reference TrackReferenceKeyFrame (:442-473) with real matching;
+        without place recognition every node id is 0, so the node-
+        constrained search is a global ratio-test match."""
+        cur = self.current
+        kf = self.arena.kfs.get(self.ref_kf_id)
+        if kf is None:
+            return False
+        has_mp = kf.mp_ids >= 0
+        node_kf = np.where(has_mp, 0, -1)
+        _, c_ang, _, c_valid, c_desc, _ = unpack(cur.packed)
+        res = matching.search_by_node_id(
+            self._tensor(kf.feats.desc), self._tensor(kf.feats.valid & has_mp),
+            self._tensor(kf.feats.angle), self._tensor(node_kf),
+            c_desc, c_valid, c_ang,
+            torch.zeros(cur.n_slots, dtype=torch.int64, device=self.device))
+        idx2 = res.idx2.cpu().numpy()
+        rows = np.nonzero(idx2 >= 0)[0]
+        if len(rows) < 15:
+            return False
+        cur.mp_ids[:] = -1
+        cur.mp_ids[idx2[rows]] = kf.mp_ids[rows]
+        T0 = (self.last_frame.Tcw if self.last_frame.Tcw is not None
+              else kf.Tcw).astype(np.float32)
+        return self._optimize_current_pose(T0, min_map_matches=10)
+
+    def _optimize_current_pose(self, T0, min_map_matches=10) -> bool:
+        """PoseOptimization + outlier pruning on the current frame."""
+        cur = self.current
+        pos, ok = self._gather_frame_points(cur)
+        xy, _, octv, _, _, ur = unpack(cur.packed)
+        T, inlier, _ = self.programs._pose_opt(
+            self._tensor(T0), self._tensor(pos), xy,
+            self.programs.inv_sigma2[octv], self._tensor(ok), ur)
+        out = torch.cat([T.reshape(-1), inlier.float()]).cpu().numpy()
+        cur.Tcw = out[:16].reshape(4, 4).astype(np.float32)
+        inlier = out[16:] > 0.5
+        bad = ok & ~inlier
+        cur.outlier = bad
+        cur.mp_ids[bad] = -1
+        self.n_inliers = int(inlier.sum())
+        return self.n_inliers >= min_map_matches
+
+    # ---- local map tracking (reference :549-695, :719-794) -----------------
+
+    def update_local_keyframes(self) -> bool:
+        """Reference UpdateLocalKeyFrames: keyframes observing the current
+        frame's points (by shared-point count), then their covisibility /
+        spanning-tree neighbours, at most 80; the reference keyframe is the
+        one sharing the most points."""
+        cur = self.current
+        counts: dict[int, int] = {}
+        for mid in cur.mp_ids:
+            if mid < 0:
+                continue
+            mp = self.arena.mps.get(int(mid))
+            if mp is None or mp.bad:
+                continue
+            for kf_id in mp.obs:
+                counts[kf_id] = counts.get(kf_id, 0) + 1
+        if not counts:
+            return False
+        obs_sorted = sorted(counts, key=lambda k: (-counts[k], k))
+        local = list(obs_sorted)
+        seen = set(local)
+
+        def _add(kf_id):
+            if kf_id not in seen:
+                seen.add(kf_id)
+                local.append(kf_id)
+
+        for kf_id in obs_sorted:
+            if len(local) > MAX_LOCAL_KEYFRAMES:
+                break
+            kf = self.arena.kfs.get(kf_id)
+            if kf is None:
+                continue
+            for nb in self.arena.covisible_ordered(kf, 10):
+                _add(nb)
+            for c in kf.children:
+                _add(c)
+            if kf.parent >= 0:
+                _add(kf.parent)
+        sel = [k for k in local if k in self.arena.kfs][:MAX_LOCAL_KEYFRAMES]
+        self.local_kf_ids = sorted(sel)
+        self.ref_kf_id = max(counts, key=counts.get)
+        cur.ref_kf_id = self.ref_kf_id
+        return True
+
+    def _gather_local_points(self):
+        """The padded local-map block of the local keyframes' points, cached
+        on (local keyframe set, arena.version): between map mutations it is
+        reused as is. At most LOCAL_MAP_SLOTS points; when the cap binds the
+        least-observed go first. Returns (ids, pos, normal, mind, maxd,
+        desc u32, valid)."""
+        key = (tuple(self.local_kf_ids), self.arena.version)
+        if (self._local_block_cache is not None
+                and self._local_block_cache[0] == key):
+            return self._local_block_cache[1]
+        id_arrays = [self.arena.kfs[k].mp_ids for k in self.local_kf_ids
+                     if k in self.arena.kfs]
+        if id_arrays:
+            all_ids = np.concatenate(id_arrays)
+            uniq = np.unique(all_ids[all_ids >= 0])
+        else:
+            uniq = np.empty(0, np.int64)
+        cols = self.arena.point_columns()
+        ids_sorted = cols[0]
+        if len(ids_sorted):
+            srch = np.clip(np.searchsorted(ids_sorted, uniq), 0,
+                           len(ids_sorted) - 1)
+            found = ids_sorted[srch] == uniq
+        else:
+            srch = np.zeros(len(uniq), np.int64)
+            found = np.zeros(len(uniq), bool)
+        sel_rows = srch[found]
+        cand_ids = uniq[found]
+        if len(cand_ids) > LOCAL_MAP_SLOTS:
+            nobs = cols[5][sel_rows]
+            keep = np.lexsort((-cand_ids, -nobs))[:LOCAL_MAP_SLOTS]
+            keep.sort()
+            sel_rows = sel_rows[keep]
+            cand_ids = cand_ids[keep]
+        ids = [int(m) for m in cand_ids]
+        P = LOCAL_MAP_SLOTS
+        pos = np.zeros((P, 3), np.float32)
+        normal = np.zeros((P, 3), np.float32)
+        mind = np.zeros(P, np.float32)
+        maxd = np.zeros(P, np.float32)
+        desc = np.zeros((P, 8), np.uint32)
+        valid = np.zeros(P, bool)
+        if ids:
+            k = len(ids)
+            pos[:k] = cols[1][sel_rows]
+            normal[:k] = cols[6][sel_rows]
+            mind[:k] = 0.8 * cols[3][sel_rows]   # reference band
+            maxd[:k] = 1.2 * cols[4][sel_rows]   # (src/MapPoint.cc:341-351)
+            desc[:k] = cols[2][sel_rows]
+            valid[:k] = True
+        out = (ids, pos, normal, mind, maxd, desc, valid)
+        self._local_block_cache = (key, out)
+        return out
+
+    def track_local_map(self) -> bool:
+        """Reference TrackLocalMap: the local-map search and pose LM in one
+        device program, then visibility / found counters and the gates."""
+        if not self.update_local_keyframes():
+            return False
+        cur = self.current
+        ids, pos, normal, mind, maxd, desc, valid = self._gather_local_points()
+        if not ids:
+            return False
+        # Points already attached count as visible and found, and stay out
+        # of the search (reference SearchLocalPoints :661-678).
+        attached = {int(m) for m in cur.mp_ids if m >= 0}
+        in_frame = np.zeros(LOCAL_MAP_SLOTS, bool)
+        in_frame[:len(ids)] = [mid in attached for mid in ids]
+        Xw_pre, ok_pre = self._gather_frame_points(cur)
+        T, idx2, visible, inlier, n_in = self.programs.localmap_step(
+            pos, normal, mind, maxd, desc, valid & ~in_frame,
+            Xw_pre, ok_pre, cur.packed, cur.mp_ids >= 0, cur.Tcw)
+        for k in np.nonzero(visible | in_frame)[0]:
+            mp = self.arena.mps.get(ids[k])
+            if mp is not None:
+                mp.n_visible += 1
+        for k in np.nonzero(idx2 >= 0)[0]:
+            cur.mp_ids[idx2[k]] = ids[k]
+        cur.Tcw = T
+        out = (cur.mp_ids >= 0) & ~inlier
+        cur.outlier = out
+        cur.mp_ids[out] = -1
+        self.n_inliers = n_in
+        self._count_found(cur)
+        # Acceptance gate (reference :570-575; the stricter one right after
+        # a relocalization comes with relocalization).
+        return self.n_inliers >= 30
+
+    def _count_found(self, cur: Frame):
+        """IncreaseFound for the frame's inlier points."""
+        mps = self.arena.mps
+        for mid in cur.mp_ids[(cur.mp_ids >= 0) & ~cur.outlier]:
+            mp = mps.get(int(mid))
+            if mp is not None:
+                mp.n_found += 1
+
+    def track_fused(self):
+        """Steady-state tracking in one device program (motion + local-map
+        stages, TrackPrograms.fused_step). The local-map block comes from
+        the previous frame's final associations (the reference rebuilds it
+        from this frame's motion matches), and update_local_keyframes runs
+        on this frame's final associations for the next frame. Returns True,
+        or None where the exact two-step path must run instead (weak
+        result, or not enough prior state)."""
+        if (self.velocity is None or not self.local_kf_ids
+                or self.last_frame is None):
+            return None
+        cur, last = self.current, self.last_frame
+        t = self.stage_ms
+        with t.stage("gather_local"):
+            ids, pos_lm, normal, mind, maxd, desc_lm, valid_lm = \
+                self._gather_local_points()
+        if not ids:
+            return None
+        with t.stage("gather_frame"):
+            pos, ok = self._gather_frame_points(last)
+        if ok.sum() < 10:
+            return None
+        with t.stage("prep"):
+            Tcw_pred = (self.velocity @ last.Tcw).astype(np.float32)
+            proj, front = self._project(pos, Tcw_pred)
+            ok = ok & front
+            # last slot -> local block row.
+            ids_arr = np.asarray(ids, np.int64)
+            order = np.argsort(ids_arr)
+            sorted_ids = ids_arr[order]
+            li = np.clip(np.searchsorted(sorted_ids, last.mp_ids), 0,
+                         len(sorted_ids) - 1)
+            found = (sorted_ids[li] == last.mp_ids) & (last.mp_ids >= 0)
+            last2local = np.where(found, order[li], -1).astype(np.int32)
+        with t.stage("fused_device"):
+            (T2, best_j, matched, inlier1, idx2, visible, already, inlier2,
+             n_in1, n_matched, _, n_in2) = self.programs.fused_step(
+                proj, ok, pos, last.packed, cur.packed, Tcw_pred,
+                pos_lm, normal, mind, maxd, desc_lm, valid_lm, last2local)
+        # Acceptance gates first (reference :570-575): a weak result falls
+        # back to the two-step path with no state changed.
+        if n_matched < 20 or n_in1 < 10 or n_in2 < 30:
+            return None
+        with t.stage("bookkeeping"):
+            cur.mp_ids[:] = -1
+            good = matched & inlier1
+            cur.mp_ids[best_j[good]] = last.mp_ids[good]
+            for k in np.nonzero(visible | already)[0]:
+                if k < len(ids):
+                    mp = self.arena.mps.get(ids[k])
+                    if mp is not None:
+                        mp.n_visible += 1
+            for k in np.nonzero(idx2 >= 0)[0]:
+                cur.mp_ids[idx2[k]] = ids[k]
+            cur.Tcw = T2
+            out = (cur.mp_ids >= 0) & ~inlier2
+            cur.outlier = out
+            cur.mp_ids[out] = -1
+            self.n_inliers = n_in2
+            self._count_found(cur)
+        with t.stage("update_local_kfs"):
+            self.update_local_keyframes()
+        return True
+
+    # ---- reset and trajectory (reference :887-927, :239) -------------------
+
+    def reset(self):
+        self.local_mapper.reset()
+        self._reset_map()
+        self.velocity = None
+        self.ref_kf_id = -1
+        self.last_kf_frame_id = -1
+        self.last_kf_id = -1
+        self.local_kf_ids = []
+        self.state = TrackingState.NOT_INITIALIZED
+
+    def _store_trajectory(self):
+        cur = self.current
+        if cur is None or cur.Tcw is None or cur.ref_kf_id < 0:
+            # Lost / uninitialized frame: repeat the last entry flagged lost.
+            if self.trajectory:
+                e = self.trajectory[-1]
+                self.trajectory.append(TrajectoryEntry(
+                    e.Tcr.copy(), e.ref_kf_id, cur.timestamp if cur else 0.0,
+                    True))
+            return
+        ref = self.arena.kfs.get(cur.ref_kf_id)
+        if ref is None:
+            return
+        Tcr = (cur.Tcw @ np.linalg.inv(ref.Tcw)).astype(np.float32)
+        cur.Tcr_ref = Tcr
+        self.trajectory.append(TrajectoryEntry(
+            Tcr, cur.ref_kf_id, cur.timestamp, False))

@@ -5,9 +5,16 @@ ORBextractor::operator()). All shapes are static: per-level keypoint
 budgets come from the config (geometric split), padded slots carry a
 validity bit, and keypoint coordinates come out in level-0 pixels.
 
-Per frame the card runs kernel A once per level (FAST score + NMS),
-kernel B once (gather + blur + IC moments for every level's keypoints from
-one all-level canvas) and kernel C once (rBRIEF pack).
+Two routes gather the keypoints' patches from one all-level canvas, as in
+the JAX package (its `_fused_gather` becomes the constructor argument
+`fused_gather`):
+  * fused (the default, the JAX package's TPU route): kernel B gathers,
+    blurs and reduces the IC moments in one pass;
+  * unfused (the JAX package's route off the TPU, extractor.py:176-182):
+    kernel D gathers the raw 43x43 patches, the IC angle comes from their
+    31x31 centre, and the blur runs as plain tensor ops.
+Either way the card runs kernel A once per level (FAST score + NMS) and
+kernel C once (rBRIEF pack).
 """
 
 from __future__ import annotations
@@ -22,8 +29,12 @@ from orb_slam_system_tpu_torch.config import ORBConfig
 from orb_slam_system_tpu_torch.ops import fast as fast_ops
 from orb_slam_system_tpu_torch.ops import pyramid as pyr_ops
 from orb_slam_system_tpu_torch.ops.brief import PATCH_RADIUS, brief_pack
-from orb_slam_system_tpu_torch.ops.orientation import angles_from_moments
-from orb_slam_system_tpu_torch.ops.patches import gather_blur_moments
+from orb_slam_system_tpu_torch.ops.orientation import (HALF_PATCH,
+                                                        angles_from_moments,
+                                                        ic_angles)
+from orb_slam_system_tpu_torch.ops.patches import (blur_patches,
+                                                   gather_blur_moments,
+                                                   gather_patches)
 
 EDGE_MARGIN = 19  # reference EDGE_THRESHOLD (src/ORBextractor.cc:18)
 
@@ -48,8 +59,10 @@ class ORBExtractor:
     """Config-bound, shape-specialized ORB extractor (one per image size
     and feature budget). Runs on whatever device its input lies on."""
 
-    def __init__(self, cfg: ORBConfig, height: int, width: int):
+    def __init__(self, cfg: ORBConfig, height: int, width: int,
+                 fused_gather: bool = True):
         self.cfg = cfg
+        self.fused_gather = fused_gather
         budgets = cfg.per_level_features()
         total = sum(budgets)
         pad_total = ((total + 127) // 128) * 128
@@ -72,8 +85,16 @@ class ORBExtractor:
     def __call__(self, img: torch.Tensor) -> FeatureSet:
         """img: f32[B, H, W] grayscale in [0, 255]."""
         sel, canvas, xy_all = self.detect(img)
-        blurred, mom = gather_blur_moments(canvas, xy_all, PATCH_RADIUS + 3)
-        ang = angles_from_moments(mom)
+        radius = PATCH_RADIUS + 3
+        if self.fused_gather:
+            blurred, mom = gather_blur_moments(canvas, xy_all, radius)
+            ang = angles_from_moments(mom)
+        else:
+            raw = gather_patches(canvas, xy_all, radius)
+            c0 = radius - HALF_PATCH
+            po = 2 * HALF_PATCH + 1
+            ang = ic_angles(raw[:, :, c0:c0 + po, c0:c0 + po])
+            blurred = blur_patches(raw)
         return FeatureSet(xy=sel["xy"], response=sel["response"], angle=ang,
                           octave=sel["octave"], desc=brief_pack(blurred, ang),
                           valid=sel["valid"])

@@ -23,9 +23,9 @@ def to_pm1(desc: torch.Tensor) -> torch.Tensor:
 
 
 def distance_matrix(desc_a: torch.Tensor, desc_b: torch.Tensor) -> torch.Tensor:
-    """All-pairs Hamming distances: int32[N1, 8] x int32[N2, 8] ->
-    int32[N1, N2]."""
-    dot = to_pm1(desc_a) @ to_pm1(desc_b).T
+    """All-pairs Hamming distances: int32[..., N1, 8] x int32[..., N2, 8] ->
+    int32[..., N1, N2] (leading axes broadcast)."""
+    dot = to_pm1(desc_a) @ to_pm1(desc_b).transpose(-1, -2)
     return ((N_BITS - dot) * 0.5).round().to(torch.int32)
 
 

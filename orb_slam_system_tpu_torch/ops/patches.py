@@ -1,12 +1,16 @@
-"""Batched square-patch gathering, the in-patch blur, and kernel B.
+"""Batched square-patch gathering, the in-patch blur, and kernels B and D.
 
 Port of orb_slam_system_tpu/ops/patches.py plus the extractor's patch blur
-(`_blur_patches`) and the fused gather (gather_pallas.
-gather_blur_moments_pallas). Kernel B (`gather_blur_moments`,
-csrc/gather_blur_moments.cu) gathers each keypoint's 43x43 patch from the
-all-level canvas, blurs it to 37x37 and reduces the IC moments in one pass;
-`gather_blur_moments_plain` is its plain PyTorch version, used for CPU
-tensors.
+(`_blur_patches`) and the two Pallas gathers of gather_pallas.py:
+  * kernel D (`gather_patches`, csrc/gather_patches.cu; TPU
+    gather_patches_pallas) copies each keypoint's raw square patch; its
+    plain version is `gather_patches_plain`;
+  * kernel B (`gather_blur_moments`, csrc/gather_blur_moments.cu; TPU
+    gather_blur_moments_pallas) gathers each keypoint's 43x43 patch from
+    the all-level canvas, blurs it to 37x37 and reduces the IC moments in
+    one pass; its plain version is `gather_blur_moments_plain`.
+Each wrapper runs its plain version on a CPU tensor and its kernel on a
+CUDA tensor.
 """
 
 from __future__ import annotations
@@ -25,19 +29,48 @@ from orb_slam_system_tpu_torch.utils import kernels
 BLUR_TAPS = 7
 
 
-def gather_patches(img: torch.Tensor, xy: torch.Tensor, radius: int) -> torch.Tensor:
-    """img: f32[B,H,W]; xy: int[B,N,2] (x, y) integer centers -> patches
-    f32[B,N,P,P], P = 2*radius+1. Patch starts are clipped so the block stays
-    inside the image (a no-op for keypoints inside the border margin)."""
-    B, H, W = img.shape
+def gather_flat_index(xy: torch.Tensor, radius: int, H: int, W: int) -> torch.Tensor:
+    """Flat pixel index i64[B, N*P*P] of every patch element: the patch
+    start is clipped so the block stays inside the H x W image."""
+    B = xy.shape[0]
     P = 2 * radius + 1
     x0 = (xy[..., 0].long() - radius).clamp(0, W - P)
     y0 = (xy[..., 1].long() - radius).clamp(0, H - P)
-    off = torch.arange(P, device=img.device)
+    off = torch.arange(P, device=xy.device)
     rows = (y0[..., None] + off)[..., :, None]            # [B,N,P,1]
     cols = (x0[..., None] + off)[..., None, :]            # [B,N,1,P]
-    flat = (rows * W + cols).reshape(B, -1)
+    return (rows * W + cols).reshape(B, -1)
+
+
+def gather_patches_plain(img: torch.Tensor, xy: torch.Tensor, radius: int) -> torch.Tensor:
+    """Plain version of kernel D. img: f32[B,H,W]; xy: int[B,N,2] (x, y)
+    integer centers -> patches f32[B,N,P,P], P = 2*radius+1. Patch starts
+    are clipped so the block stays inside the image (a no-op for keypoints
+    inside the border margin)."""
+    B, H, W = img.shape
+    P = 2 * radius + 1
+    flat = gather_flat_index(xy, radius, H, W)
     return torch.gather(img.reshape(B, H * W), 1, flat).reshape(*xy.shape[:2], P, P)
+
+
+def gather_patches(img: torch.Tensor, xy: torch.Tensor, radius: int) -> torch.Tensor:
+    """Kernel D on a CUDA image, the plain version on a CPU image. Same
+    contract as gather_patches_plain; xy is i32[B,N,2] on the card."""
+    if img.device.type == "cpu":
+        return gather_patches_plain(img, xy, radius)
+    kernels.check_cuda(img, "gather_patches img", torch.float32, 3)
+    kernels.check_cuda(xy, "gather_patches xy", torch.int32, 3)
+    B, H, W = img.shape
+    if xy.shape[0] != B or xy.shape[2] != 2:
+        raise ValueError(f"xy shape {tuple(xy.shape)} does not match image")
+    P = 2 * radius + 1
+    if radius < 0 or P > H or P > W:
+        raise ValueError(f"radius {radius} does not fit a {H}x{W} image")
+    N = xy.shape[1]
+    out = torch.empty((B, N, P, P), device=img.device)
+    kernels.launch("orb_gather_patches", "gather_patches", img.data_ptr(),
+                   xy.data_ptr(), out.data_ptr(), B, N, H, W, radius)
+    return out
 
 
 def blur_patches(patches: torch.Tensor) -> torch.Tensor:
@@ -64,7 +97,7 @@ def gather_blur_moments_plain(canvas: torch.Tensor, xy: torch.Tensor,
     """Plain version of kernel B. canvas: f32[B,H,W] (reflect-padded by the
     caller); xy: int[B,N,2] centers. Returns (blurred f32[B,N,P-6,P-6],
     moments f32[B,N,2] = (m10, m01) of the unblurred circular 31x31 centre)."""
-    patches = gather_patches(canvas, xy, radius)
+    patches = gather_patches_plain(canvas, xy, radius)
     c0 = radius - HALF_PATCH
     po = 2 * HALF_PATCH + 1
     mom = patch_moments(patches[:, :, c0:c0 + po, c0:c0 + po])

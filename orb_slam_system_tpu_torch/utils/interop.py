@@ -31,10 +31,8 @@ def packed_frame_from_numpy(packed, device) -> torch.Tensor:
 def local_block_from_numpy(pos, normal, mind, maxd, desc, valid, device):
     """Local-map block (numpy; desc u32[P,8]) -> tensors on `device`, desc
     as int32 bit patterns."""
-    f = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(device)
-    return (f(pos), f(normal), f(mind), f(maxd),
-            _bits(desc, np.int32).to(device),
-            torch.from_numpy(np.asarray(valid, bool).copy()).to(device))
+    return tuple(to_device(a, device)
+                 for a in (pos, normal, mind, maxd, desc, valid))
 
 
 def feature_set_from_numpy(fs, device) -> FeatureSet:
@@ -48,8 +46,43 @@ def feature_set_from_numpy(fs, device) -> FeatureSet:
         valid=f(fs.valid, np.bool_))
 
 
+def to_device(a, device) -> torch.Tensor:
+    """numpy -> tensor on `device`: uint32 descriptor words become their
+    int32 bits, bools stay bool, other integers become int64 and floats
+    float32. A read-only array (a JAX array's numpy view) is copied."""
+    a = np.ascontiguousarray(a)
+    if not a.flags.writeable:
+        a = a.copy()
+    if a.dtype == np.uint32:
+        return torch.from_numpy(a.view(np.int32)).to(device)
+    dtype = (torch.bool if a.dtype == np.bool_ else torch.int64
+             if np.issubdtype(a.dtype, np.integer) else torch.float32)
+    return torch.from_numpy(a).to(device=device, dtype=dtype)
+
+
 def to_numpy(t: torch.Tensor, uint32: bool = False) -> np.ndarray:
     """Tensor -> numpy; uint32=True reinterprets int32 descriptor words as
     the JAX package's uint32 (a view of the same bits)."""
     a = t.detach().cpu().numpy()
     return a.view(np.uint32) if uint32 else a
+
+
+def ba_problem_from_numpy(prob, device):
+    """A JAX-side BAProblem (or any object with its fields; arrays as JAX
+    or numpy arrays) -> the port's BAProblem on `device`."""
+    from orb_slam_system_tpu_torch.solvers.local_ba import BAProblem
+
+    fields = {k: to_device(np.asarray(getattr(prob, k)), device)
+              for k in BAProblem._fields[:10]}
+    e_ur = getattr(prob, "e_ur", None)
+    return BAProblem(**fields,
+                     e_ur=None if e_ur is None else to_device(np.asarray(e_ur), device),
+                     bf=float(getattr(prob, "bf", 0.0)))
+
+
+def init_inputs_from_numpy(pts1, pts2, matched, ransac_sets, K, device):
+    """Two-view initializer inputs (numpy) -> the port's tensors on
+    `device`: (pts1 f32[M,2], pts2 f32[M,2], matched bool[M],
+    ransac_sets i64[S,8], K f32[3,3])."""
+    return tuple(to_device(np.asarray(a), device)
+                 for a in (pts1, pts2, matched, ransac_sets, K))

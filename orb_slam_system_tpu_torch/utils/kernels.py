@@ -30,7 +30,8 @@ BUILD_ROOT = _PKG.parent / "build" / "torch_kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-fmad=false"]
 
-LAUNCHES = {"fast_score_nms": 0, "gather_blur_moments": 0, "brief_pack": 0}
+LAUNCHES = {"fast_score_nms": 0, "gather_blur_moments": 0, "brief_pack": 0,
+            "gather_patches": 0}
 
 _VP = ctypes.c_void_p
 _I = ctypes.c_int
@@ -40,6 +41,7 @@ _SIGNATURES = {
     "orb_gather_blur_moments": [_VP, _VP, _VP, _VP, _VP, _VP,
                                 _I, _I, _I, _I, _I, _VP],
     "orb_brief_pack": [_VP, _VP, _VP, _VP, _I, _VP],
+    "orb_gather_patches": [_VP, _VP, _VP, _I, _I, _I, _I, _I, _VP],
 }
 
 _lib = None
@@ -63,7 +65,8 @@ def _sources():
 
 def build(verbose: bool = False) -> Path:
     """Compile csrc/*.cu into the hashed build directory (no-op when the
-    library for these sources and flags exists). Returns its path."""
+    library for these sources and flags exists). Returns its path. One nvcc
+    per source, all started together, then one link."""
     srcs = _sources()
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for s in srcs:
@@ -74,15 +77,28 @@ def build(verbose: bool = False) -> Path:
     if lib_path.exists():
         return lib_path
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f"liborb_kernels.{os.getpid()}.so"
-    cmd = [nvcc_path(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", str(tmp), *map(str, srcs)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
+    tag = os.getpid()
+    compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
+    objs = [out_dir / f"{s.stem}.{tag}.o" for s in srcs]
+    procs = [subprocess.Popen(
+        [nvcc_path(), *compile_flags, *(["-Xptxas", "-v"] if verbose else []),
+         "-c", "-o", str(o), str(s)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for s, o in zip(srcs, objs)]
+    logs = [p.communicate()[0] for p in procs]
+    failed = [s.name for s, p in zip(srcs, procs) if p.returncode != 0]
+    if failed:
+        raise RuntimeError(f"nvcc failed on {failed}:\n" + "".join(logs))
+    tmp = out_dir / f"liborb_kernels.{tag}.so"
+    res = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
+                          *map(str, objs)], capture_output=True, text=True)
     if res.returncode != 0:
-        raise RuntimeError("nvcc failed:\n" + res.stdout + res.stderr)
+        raise RuntimeError("nvcc link failed:\n" + res.stdout + res.stderr)
     if verbose:
-        print(res.stdout + res.stderr, flush=True)
+        print("".join(logs) + res.stdout + res.stderr, flush=True)
     os.replace(tmp, lib_path)
+    for o in objs:
+        o.unlink(missing_ok=True)
     return lib_path
 
 

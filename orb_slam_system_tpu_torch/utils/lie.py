@@ -7,6 +7,7 @@ Conventions as in the JAX package: rotations are 3x3, transforms Tcw are 4x4
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 _EPS = 1e-8
@@ -44,18 +45,32 @@ def so3_exp(w: torch.Tensor) -> torch.Tensor:
 
 
 def se3_exp(xi: torch.Tensor) -> torch.Tensor:
-    """se3 (6,) [rho, phi] -> SE3 (4,4)."""
-    rho, phi = xi[:3], xi[3:6]
-    A, B, C = _coeffs(phi)
-    W = hat(phi)
+    """se3 [..., 6] [rho, phi] -> SE3 [..., 4, 4] over any leading axes (the
+    JAX package's lie.se3_exp, and its jax.vmap)."""
+    rho, w = xi[..., :3], xi[..., 3:6]
+    theta2 = (w * w).sum(-1)
+    theta = torch.sqrt(theta2 + _EPS * _EPS)
+    big = theta2 > _EPS
+    t2s = torch.where(big, theta2, torch.ones_like(theta2))
+    A = torch.where(big, torch.sin(theta) / theta, 1.0 - theta2 / 6.0)
+    B = torch.where(big, (1.0 - torch.cos(theta)) / t2s, 0.5 - theta2 / 24.0)
+    C = torch.where(big, (theta - torch.sin(theta)) / (t2s * theta),
+                    1.0 / 6.0 - theta2 / 120.0)
+    z = torch.zeros_like(w[..., 0])
+    W = torch.stack([
+        torch.stack([z, -w[..., 2], w[..., 1]], -1),
+        torch.stack([w[..., 2], z, -w[..., 0]], -1),
+        torch.stack([-w[..., 1], w[..., 0], z], -1)], -2)
     WW = W @ W
     eye = torch.eye(3, dtype=xi.dtype, device=xi.device)
+    A, B, C = A[..., None, None], B[..., None, None], C[..., None, None]
     R = eye + A * W + B * WW
-    V = eye + B * W + C * WW
-    top = torch.cat([R, (V @ rho)[:, None]], dim=1)
-    bottom = torch.tensor([[0.0, 0.0, 0.0, 1.0]], dtype=xi.dtype,
-                          device=xi.device)
-    return torch.cat([top, bottom], dim=0)
+    t = ((eye + B * W + C * WW) @ rho[..., None])[..., 0]
+    T = torch.zeros(xi.shape[:-1] + (4, 4), dtype=xi.dtype, device=xi.device)
+    T[..., :3, :3] = R
+    T[..., :3, 3] = t
+    T[..., 3, 3] = 1.0
+    return T
 
 
 def se3_inv(T: torch.Tensor) -> torch.Tensor:
@@ -84,3 +99,34 @@ def se3_project(T: torch.Tensor, iters: int = 5) -> torch.Tensor:
     out[:3, :3] = so3_project(T[:3, :3], iters)
     out[:3, 3] = T[:3, 3]
     return out
+
+
+def quat_from_rot(R) -> np.ndarray:
+    """Rotation matrix (numpy 3x3) -> unit quaternion (x, y, z, w), TUM
+    trajectory order (the JAX package's lie.quat_from_rot, on the host).
+    Case choice: w when the trace is positive, else the largest diagonal
+    entry. The JAX version indexes its cases one off there (m00 largest
+    takes the y case), which loses precision when 1 + m11 - m00 - m22 is
+    near 0; both agree whenever the trace is positive."""
+    R = np.asarray(R, np.float64)
+    m00, m01, m02 = R[0]
+    m10, m11, m12 = R[1]
+    m20, m21, m22 = R[2]
+    tr = m00 + m11 + m22
+    eps = _EPS
+    if tr > 0:
+        s = np.sqrt(max(tr + 1.0, eps)) * 2.0
+        q = [(m21 - m12) / s, (m02 - m20) / s, (m10 - m01) / s, 0.25 * s]
+    else:
+        case = int(np.argmax([m00, m11, m22]))
+        if case == 0:
+            s = np.sqrt(max(1.0 + m00 - m11 - m22, eps)) * 2.0
+            q = [0.25 * s, (m01 + m10) / s, (m02 + m20) / s, (m21 - m12) / s]
+        elif case == 1:
+            s = np.sqrt(max(1.0 + m11 - m00 - m22, eps)) * 2.0
+            q = [(m01 + m10) / s, 0.25 * s, (m12 + m21) / s, (m02 - m20) / s]
+        else:
+            s = np.sqrt(max(1.0 + m22 - m00 - m11, eps)) * 2.0
+            q = [(m02 + m20) / s, (m12 + m21) / s, 0.25 * s, (m10 - m01) / s]
+    q = np.asarray(q)
+    return q / np.linalg.norm(q)

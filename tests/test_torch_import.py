@@ -36,6 +36,8 @@ xy = torch.from_numpy(rng.integers(21, 43, (1, 16, 2)).astype(np.int32))
 b1, m1 = patches.gather_blur_moments(img, xy, 21)
 b2, m2 = patches.gather_blur_moments_plain(img, xy, 21)
 assert torch.equal(b1, b2) and torch.equal(m1, m2)
+assert torch.equal(patches.gather_patches(img, xy, 21),
+                   patches.gather_patches_plain(img, xy, 21))
 ang = torch.from_numpy(rng.uniform(0, 6.28, (1, 16)).astype(np.float32))
 assert torch.equal(brief.brief_pack(b1, ang), brief.brief_pack_plain(b1, ang))
 assert kernels._lib is None, "the kernel library was loaded"
@@ -55,7 +57,23 @@ def _run(code):
 
 
 def test_port_never_imports_jax():
-    assert int(_run(_IMPORT_ALL).split()[-1]) >= 20
+    """Every module of the port (walked, so new ones are covered) and
+    chip_smoke.py import without jax or the JAX package."""
+    assert int(_run(_IMPORT_ALL).split()[-1]) >= 32
+
+
+def test_entry_points_default_to_the_card():
+    """The CPU runs only when the caller asks for it."""
+    import inspect
+
+    from orb_slam_system_tpu_torch.models.frame import FrameBuilder
+    from orb_slam_system_tpu_torch.models.local_mapping import LocalMapper
+    from orb_slam_system_tpu_torch.models.system import System
+    from orb_slam_system_tpu_torch.models.track_device import TrackPrograms
+    from orb_slam_system_tpu_torch.models.tracking import Tracker
+    from orb_slam_system_tpu_torch.drivers.mono_synthetic import run
+    for entry in (FrameBuilder, TrackPrograms, System, Tracker, LocalMapper, run):
+        assert inspect.signature(entry).parameters["device"].default == "cuda", entry
 
 
 def test_wrappers_take_plain_path_on_cpu():

@@ -26,7 +26,8 @@ from orb_slam_system_tpu.ops.orientation import moment_weights as j_weights
 from orb_slam_system_tpu.ops.patches import gather_patches as j_gather
 from orb_slam_system_tpu_torch.ops import brief, fast, frustum, hamming, matching
 from orb_slam_system_tpu_torch.ops import pyramid
-from orb_slam_system_tpu_torch.ops.patches import gather_blur_moments
+from orb_slam_system_tpu_torch.ops.patches import (gather_blur_moments,
+                                                   gather_patches_plain)
 
 
 def _rendered(h, w, i=0):
@@ -305,3 +306,49 @@ def test_interop_keeps_bits(rng):
     packed[:, 8:16] = desc.view(np.float32)
     back = interop.packed_frame_from_numpy(packed, "cpu")
     np.testing.assert_array_equal(back.numpy().view(np.uint32)[:, 8:16], desc)
+
+
+@pytest.mark.parametrize("radius", [21, 7])
+def test_gather_patches_plain_matches_jax(radius, rng):
+    """Kernel D's plain version vs the JAX block gather, bit for bit,
+    including keypoints whose patch start is clipped at every edge."""
+    B, H, W, N = 2, 96, 160, 64
+    img = rng.uniform(0, 255, size=(B, H, W)).astype(np.float32)
+    xy = np.stack([rng.integers(-10, W + 10, size=(B, N)),
+                   rng.integers(-10, H + 10, size=(B, N))],
+                  axis=-1).astype(np.int32)
+    xy[0, :4] = [[0, 0], [W - 1, H - 1], [-3, H + 2], [W + 5, 1]]
+    want = np.asarray(j_gather(jnp.asarray(img), jnp.asarray(xy), radius))
+    got = gather_patches_plain(torch.from_numpy(img), torch.from_numpy(xy), radius)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("h,w", [(120, 160), (240, 320)])
+def test_unfused_route_matches_jax_extractor(h, w):
+    """ORBExtractor(fused_gather=False) (raw gather, IC angle from the 31x31
+    centre, plain blur) against the JAX extractor, which takes the same
+    route off the TPU: identical keypoints; descriptor bits equal except on
+    keypoints whose angle bin differs, counted apart (<= 1%)."""
+    from orb_slam_system_tpu.config import ORBConfig as JORBConfig
+    from orb_slam_system_tpu.ops.brief import _angle_bins as j_bins
+    from orb_slam_system_tpu.ops.extractor import ORBExtractor as JExtractor
+    from orb_slam_system_tpu_torch.config import ORBConfig
+    from orb_slam_system_tpu_torch.ops.brief import _angle_bins
+    from orb_slam_system_tpu_torch.ops.extractor import ORBExtractor
+
+    cfg = dict(n_features=500 if w == 320 else 256, n_levels=8 if w == 320 else 4)
+    img = _rendered(h, w, 1)[None]
+    jx = JExtractor(JORBConfig(**cfg), h, w)
+    assert not jx._fused_gather
+    fj = jx(jnp.asarray(img))
+    fp = ORBExtractor(ORBConfig(**cfg), h, w, fused_gather=False)(
+        torch.from_numpy(img))
+    vj = np.asarray(fj.valid[0])
+    np.testing.assert_array_equal(fp.valid[0].numpy(), vj)
+    np.testing.assert_array_equal(fp.xy[0].numpy(), np.asarray(fj.xy[0]))
+    np.testing.assert_array_equal(fp.octave[0].numpy(), np.asarray(fj.octave[0]))
+    flips = (_angle_bins(fp.angle).numpy()[0]
+             != np.asarray(j_bins(fj.angle))[0]) & vj
+    assert flips.sum() <= 0.01 * vj.sum(), f"{flips.sum()} angle-bin flips"
+    differ = (fp.desc[0].numpy().view(np.uint32) != np.asarray(fj.desc[0])).any(1)
+    assert not (differ & vj & ~flips).any()

@@ -137,3 +137,45 @@ def test_slice_matches_jax(scene, jax_side, port_side):
         C = -b.Tcw[:3, :3].T @ b.Tcw[:3, 3]
         C_gt = -poses[i][:3, :3].T @ poses[i][:3, 3]
         assert np.linalg.norm(C - C_gt) < 0.03
+
+
+@pytest.mark.parametrize("step", ["motion_step", "localmap_step"])
+def test_fallback_steps_match_jax(scene, jax_side, port_side, step):
+    """The tracker's two-step fallback programs on frame 0 -> 1 of the
+    seeded map, each side on its own packed frames: pose within 1e-3,
+    match and inlier counts within 3% (the LM reclassifies edges whose chi2
+    sits near 5.991, where float32 sums in another order flip a few),
+    associations equal on >= 99% of rows."""
+    cam, r, poses, _ = scene
+    _, jprog, jbuilt = jax_side
+    pfb, pprog, pbuilt = port_side
+    T0 = poses[0].astype(np.float32)
+    lm, mp_ids = seed_map_from_depth(
+        JFrameBuilder._unpack_feats(np.asarray(jbuilt[0].packed_dev)), T0,
+        r.render_depth(poses[0]), cam, pfb.scale_factors, LOCAL_SLOTS)
+    n = len(mp_ids)
+    if step == "motion_step":
+        ok = mp_ids >= 0
+        pos = np.zeros((n, 3), np.float32)
+        pos[ok] = lm.pos[mp_ids[ok]]
+        Xc = pos @ T0[:3, :3].T + T0[:3, 3]
+        proj = (Xc[:, :2] / np.where(ok, Xc[:, 2], 1.0)[:, None]
+                * [cam.fx, cam.fy] + [cam.cx, cam.cy]).astype(np.float32)
+        args = (proj, ok, pos)
+        outs = [prog.motion_step(*args, b[0], b[1], T0) for prog, b in
+                ((jprog, [f.packed_dev for f in jbuilt]),
+                 (pprog, [f.packed for f in pbuilt]))]
+        (Tj, bj, mj, _, nj, nmj, nvj), (Tp, bp, mp, _, np_, nmp, nvp) = outs
+        assert nvj == nvp and abs(nmj - nmp) <= 0.03 * nmj
+        assert abs(nj - np_) <= 0.03 * nj
+        assert ((bj == bp) | ~(mj & mp)).mean() >= 0.99
+    else:
+        args = (lm.pos, lm.normal, lm.mind, lm.maxd, lm.desc, lm.valid,
+                np.zeros((n, 3), np.float32), np.zeros(n, bool))
+        outs = [prog.localmap_step(*args, packed, np.zeros(n, bool), T0)
+                for prog, packed in ((jprog, jbuilt[1].packed_dev),
+                                     (pprog, pbuilt[1].packed))]
+        (Tj, ij, vj, _, nj), (Tp, ip, vp, _, np_) = outs
+        assert abs(nj - np_) <= 0.03 * nj and nj >= 100
+        assert (ij == ip).mean() >= 0.99 and (vj == vp).mean() >= 0.99
+    np.testing.assert_allclose(Tp, Tj, rtol=0, atol=1e-3)
