@@ -8,13 +8,14 @@ Phases, each of which fails the run (exit code != 0) when it fails:
   2. build the four CUDA kernels from orb_slam_system_tpu_torch/csrc (one
      nvcc per source, in parallel);
   3. hold each kernel against its plain PyTorch version on the card, at the
-     slice's shapes (all 8 pyramid levels of a rendered 640x480 frame for
-     kernel A, its 1024 keypoint slots for kernels B, C and D), and time
-     the kernel, its plain version and, where one PyTorch call computes
-     the same function, that call (torch.gather for kernel D); then run
-     the extractor's unfused route (kernel D) over 10 frames, with the
-     launch counts read around it, and hold frame 0 against the fused
-     route;
+     slice's shapes (all 8 pyramid levels of a rendered 640x480 frame, in
+     one launch, for kernel A; its 1024 keypoint slots for kernels B, C
+     and D), and time the kernel, its plain version and, where one PyTorch
+     call computes the same function, that call (torch.gather for kernel
+     D): call time from CUDA events around 20 calls, and the kernel's own
+     device time per launch from torch.profiler; then run the extractor's
+     unfused route (kernels A and D) over 10 frames, with the launch
+     counts read around it, and hold frame 0 against the fused route;
   4. run the first slice at full width: a 30-frame 640x480 orbit over the
      textured plane (1000 features, 8 levels), map seeded from frame 0's
      depth at its true pose, frames 1-29 tracked through FrameBuilder.build
@@ -28,7 +29,8 @@ Phases, each of which fails the run (exit code != 0) when it fails:
      per-stage times, a profiler count of one keyframe insertion and one
      local BA, and check the reference's bars (state OK, >= 3 keyframes,
      > 150 map points, ATE < 3 cm) plus >= 90% of the frames after
-     initialization tracked, and that every kernel of the path launched.
+     initialization tracked, and that every kernel of the path launched
+     (kernel A once per frame build).
 The second-to-last line is a JSON object with each kernel's launches, error,
 times and bound; the last line is {"ok": true, "device": {...}}. Without
 CUDA, or without the package beside it, the script exits non-zero and prints
@@ -87,6 +89,33 @@ def cuda_ms(torch, fn, reps: int = 20) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(torch, fn, kernel, reps: int = 20, launches: int = 1) -> float:
+    """Device ms per launch of the kernel whose name contains `kernel`
+    (None: any kernel fn launches), from torch.profiler over `reps` calls of
+    fn after a warm-up; fn launches it `launches` times per call. The
+    profiler has been seen to drop kernel records on the H100 machine, so a
+    window that does not hold all reps * launches records is profiled
+    again, up to 3 windows; the run fails if none holds them all."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    want = reps * launches
+    for window in range(1, 4):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        evs = [e for e in prof.key_averages()
+               if str(e.device_type).endswith("CUDA")
+               and (kernel is None or kernel in e.key)]
+        n = sum(e.count for e in evs)
+        if n == want:
+            return sum(e.self_device_time_total for e in evs) / 1e3 / n
+        print(f"profiler window {window}: {n} of {want} records of kernel "
+              f"{kernel!r}", flush=True)
+    fail(f"the profiler never showed all {want} launches of kernel {kernel!r}")
 
 
 def pose_error(T, T_gt):
@@ -185,28 +214,43 @@ def main() -> None:
     levels = build_pyramid(img, cfg.orb.n_levels, cfg.orb.scale_factor)
     report = {}
     errs_a = []
-    for lvl in levels:
-        k_out = fast.fast_score_nms(lvl, 19)
+    for lvl, k_out in zip(levels, fast.fast_score_nms_levels(levels, 19)):
         p_out = fast.nms3x3(fast.fast_score_map(lvl, 19))
         if not torch.equal(k_out, p_out):
             n_bad = int((k_out != p_out).sum())
             fail(f"kernel A differs from the plain version on level "
                  f"{tuple(lvl.shape)}: {n_bad} pixels")
         errs_a.append(float((k_out - p_out).abs().max()))
-    ms_a = cuda_ms(torch, lambda: [fast.fast_score_nms(l, 19) for l in levels])
+    run_a = lambda: fast.fast_score_nms_levels(levels, 19)
+    ms_a = cuda_ms(torch, run_a)
+    dev_a = device_ms(torch, run_a, "fast_score_nms_kernel")
     plain_a = cuda_ms(torch, lambda: [fast.nms3x3(fast.fast_score_map(l, 19))
                                       for l in levels])
-    # Each level read and written once; per pixel 16 differences, ~300
-    # min/max of the segment test and 9 NMS max (csrc/fast_score_nms.cu).
+    # Bound: each level read and written once, and per pixel the first
+    # design's ~330 operations (16 arcs x 16 min/max, 32 reductions, 9 NMS
+    # max) at the f32 peak, kept unchanged so the row compares across
+    # versions of the kernel.
+    # The current design (csrc/fast_score_nms.cu) does 16 differences, 97
+    # min/max for the segment test and 9 max for the NMS per pixel: at the
+    # f32 peak that takes less than its bytes, so its own bound is the
+    # bytes'. min/max issue at a quarter of that peak (CUDA C++ Programming
+    # Guide, sm_90: 64 results per clock per SM against 128 FMAs of two
+    # operations); at that rate its 106 min/max per pixel take minmax_a.
     px = sum(l.numel() for l in levels)
+    bytes_a = bound_ms(8.0 * px, 0.0)[0]
+    minmax_a = 1e3 * 106.0 * px / (F32_OPS_PER_S / 4)
     report["fast_score_nms"] = dict(
         source="orb_slam_system_tpu_torch/csrc/fast_score_nms.cu",
         replaces="orb_slam_system_tpu/ops/fast_pallas.py:108",
-        max_abs_err=max(errs_a), ms=ms_a, plain_ms=plain_a,
+        max_abs_err=max(errs_a), ms=ms_a, device_ms=dev_a, plain_ms=plain_a,
         bound=bound_ms(8.0 * px, 330.0 * px), library_ms=None)
     print(f"kernel A fast_score_nms: bit-exact on {len(levels)} levels "
-          f"{[tuple(l.shape[1:]) for l in levels]}; {ms_a:.4f} ms "
-          f"(plain {plain_a:.4f} ms) per frame, {card}", flush=True)
+          f"{[tuple(l.shape[1:]) for l in levels]} in one launch; call "
+          f"{ms_a:.4f} ms, device {dev_a:.4f} ms (plain {plain_a:.4f} ms) per "
+          f"frame; bound {report['fast_score_nms']['bound'][0]:.4f} ms at the "
+          f"first design's operation count, this design's: bytes "
+          f"{bytes_a:.4f} ms, min/max issue {minmax_a:.4f} ms; {card}",
+          flush=True)
 
     _, canvas, xy_all = ex.detect(img)
     kb, km = patches.gather_blur_moments(canvas, xy_all, 21)
@@ -217,7 +261,9 @@ def main() -> None:
     mom_err = float((km - pm).abs().max())
     if not mom_err <= 0.5:
         fail(f"kernel B moments differ by {mom_err} (> 0.5)")
-    ms_b = cuda_ms(torch, lambda: patches.gather_blur_moments(canvas, xy_all, 21))
+    run_b = lambda: patches.gather_blur_moments(canvas, xy_all, 21)
+    ms_b = cuda_ms(torch, run_b)
+    dev_b = device_ms(torch, run_b, "gather_blur_moments_kernel")
     plain_b = cuda_ms(torch, lambda: patches.gather_blur_moments_plain(
         canvas, xy_all, 21))
     n_kp = xy_all.shape[1]
@@ -225,7 +271,7 @@ def main() -> None:
     report["gather_blur_moments"] = dict(
         source="orb_slam_system_tpu_torch/csrc/gather_blur_moments.cu",
         replaces="orb_slam_system_tpu/ops/gather_pallas.py:336",
-        max_abs_err=mom_err, ms=ms_b, plain_ms=plain_b,
+        max_abs_err=mom_err, ms=ms_b, device_ms=dev_b, plain_ms=plain_b,
         # Canvas and centres read once, blurred patches and moments
         # written once; row + column blur passes and the moments.
         bound=bound_ms(4.0 * (canvas.numel() + xy_all.numel() + kb.numel()
@@ -237,27 +283,30 @@ def main() -> None:
                     != _angle_bins(angles_from_moments(pm))).sum())
     print(f"kernel B gather_blur_moments: canvas {tuple(canvas.shape)}, "
           f"{xy_all.shape[1]} keypoints; blur bit-exact, moments max err "
-          f"{mom_err:.3g}, angle-bin flips {n_bins_b}; {ms_b:.4f} ms "
-          f"(plain {plain_b:.4f} ms), {card}", flush=True)
+          f"{mom_err:.3g}, angle-bin flips {n_bins_b}; call {ms_b:.4f} ms, "
+          f"device {dev_b:.4f} ms (plain {plain_b:.4f} ms), {card}", flush=True)
 
     ang = angles_from_moments(pm)
     kc = brief.brief_pack(pb, ang)
     pc = brief.brief_pack_plain(pb, ang)
     if not torch.equal(kc, pc):
         fail(f"kernel C differs in {int((kc != pc).any(-1).sum())} keypoints")
-    ms_c = cuda_ms(torch, lambda: brief.brief_pack(pb, ang))
+    run_c = lambda: brief.brief_pack(pb, ang)
+    ms_c = cuda_ms(torch, run_c)
+    dev_c = device_ms(torch, run_c, "brief_pack_kernel")
     plain_c = cuda_ms(torch, lambda: brief.brief_pack_plain(pb, ang))
     report["brief_pack"] = dict(
         source="orb_slam_system_tpu_torch/csrc/brief_pack.cu",
         replaces="orb_slam_system_tpu/ops/brief_pallas.py:68",
-        max_abs_err=0.0, ms=ms_c, plain_ms=plain_c,
+        max_abs_err=0.0, ms=ms_c, device_ms=dev_c, plain_ms=plain_c,
         # Blurred patches and angles read once, words written once; two
         # bf16 roundings and one compare per test.
         bound=bound_ms(4.0 * (pb.numel() + ang.numel() + kc.numel()),
                        3.0 * 256 * n_kp),
         library_ms=None)
-    print(f"kernel C brief_pack: {tuple(kc.shape)} words bit-exact; "
-          f"{ms_c:.4f} ms (plain {plain_c:.4f} ms), {card}", flush=True)
+    print(f"kernel C brief_pack: {tuple(kc.shape)} words bit-exact; call "
+          f"{ms_c:.4f} ms, device {dev_c:.4f} ms (plain {plain_c:.4f} ms), "
+          f"{card}", flush=True)
 
     kd = patches.gather_patches(canvas, xy_all, 21)
     pd = patches.gather_patches_plain(canvas, xy_all, 21)
@@ -269,21 +318,27 @@ def main() -> None:
     lib = torch.gather(flat_canvas, 1, flat).reshape(kd.shape)
     if not torch.equal(lib, kd):
         fail("torch.gather over the flat indices differs from kernel D")
-    ms_d = cuda_ms(torch, lambda: patches.gather_patches(canvas, xy_all, 21))
+    run_d = lambda: patches.gather_patches(canvas, xy_all, 21)
+    run_lib_d = lambda: torch.gather(flat_canvas, 1, flat)
+    ms_d = cuda_ms(torch, run_d)
+    dev_d = device_ms(torch, run_d, "gather_patches_kernel")
     plain_d = cuda_ms(torch, lambda: patches.gather_patches_plain(
         canvas, xy_all, 21))
-    lib_d = cuda_ms(torch, lambda: torch.gather(flat_canvas, 1, flat))
+    lib_d = cuda_ms(torch, run_lib_d)
+    lib_dev_d = device_ms(torch, run_lib_d, None)
     report["gather_patches"] = dict(
         source="orb_slam_system_tpu_torch/csrc/gather_patches.cu",
         replaces="orb_slam_system_tpu/ops/gather_pallas.py:113",
-        max_abs_err=float((kd - pd).abs().max()), ms=ms_d, plain_ms=plain_d,
+        max_abs_err=float((kd - pd).abs().max()), ms=ms_d, device_ms=dev_d,
+        plain_ms=plain_d,
         # A copy: canvas and centres read once, patches written once.
         bound=bound_ms(4.0 * (canvas.numel() + xy_all.numel() + kd.numel()),
                        0.0),
-        library_ms=lib_d)
-    print(f"kernel D gather_patches: {tuple(kd.shape)} bit-exact; "
-          f"{ms_d:.4f} ms (plain {plain_d:.4f} ms, torch.gather over "
-          f"precomputed indices {lib_d:.4f} ms), {card}", flush=True)
+        library_ms=lib_d, library_device_ms=lib_dev_d)
+    print(f"kernel D gather_patches: {tuple(kd.shape)} bit-exact; call "
+          f"{ms_d:.4f} ms, device {dev_d:.4f} ms (plain {plain_d:.4f} ms; "
+          f"torch.gather over precomputed indices: call {lib_d:.4f} ms, "
+          f"device {lib_dev_d:.4f} ms), {card}", flush=True)
 
     # The extractor's unfused route (kernel D); counts read around it.
     fb_unfused = FrameBuilder(cfg, dev, fused_gather=False)
@@ -293,8 +348,10 @@ def main() -> None:
                for i in range(N_UNFUSED_FRAMES)]
     torch.cuda.synchronize()
     unfused_launches = dict(kernels.LAUNCHES)
-    if unfused_launches["gather_patches"] <= 0:
-        fail("the unfused route did not launch kernel D")
+    for name in ("fast_score_nms", "gather_patches"):
+        if unfused_launches[name] != N_UNFUSED_FRAMES:
+            fail(f"the unfused route launched {name} "
+                 f"{unfused_launches[name]} times in {N_UNFUSED_FRAMES} frames")
     got_u = unfused[0].packed.cpu()
     ref_f = fb.build(frames[0], 0.0).packed.cpu()
     if not torch.equal(got_u[:, [0, 1, 4, 6, 7]], ref_f[:, [0, 1, 4, 6, 7]]):
@@ -383,8 +440,9 @@ def main() -> None:
     print(f"frame 0 vs the CPU path: keypoints identical, {int(flips.sum())} "
           f"angle-bin flips, descriptors equal elsewhere", flush=True)
     for name in ("fast_score_nms", "gather_blur_moments", "brief_pack"):
-        if launches[name] <= 0:
-            fail(f"kernel {name} was not launched by the slice")
+        if launches[name] != N_FRAMES:
+            fail(f"kernel {name} launched {launches[name]} times in the "
+                 f"slice's {N_FRAMES} frame builds")
     print(f"launches in the slice: {launches}", flush=True)
 
     # Where the time goes: kernels launched, device time, idle share.
@@ -474,6 +532,9 @@ def main() -> None:
     for name in ("fast_score_nms", "gather_blur_moments", "brief_pack"):
         if system_launches[name] <= 0:
             fail(f"kernel {name} was not launched by the system run")
+    if system_launches["fast_score_nms"] != len(recs):
+        fail(f"kernel A launched {system_launches['fast_score_nms']} times "
+             f"for {len(recs)} frame builds (one launch per build expected)")
 
     # Launches of each kernel on the path that runs it: the System for A, B
     # and C, the extractor's unfused route for D.
@@ -484,8 +545,10 @@ def main() -> None:
         {"name": name, "route": "cuda", "source": r["source"],
          "replaces": r["replaces"], "launches": path_launches[name],
          "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-         "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
-         "bound_by": r["bound"][1], "library_ms": r["library_ms"]}
+         "device_ms": r["device_ms"], "plain_ms": r["plain_ms"],
+         "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
+         "library_ms": r["library_ms"],
+         "library_device_ms": r.get("library_device_ms")}
         for name, r in report.items()]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {

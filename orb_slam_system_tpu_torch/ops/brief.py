@@ -103,7 +103,7 @@ def brief_pack_plain(blurred: torch.Tensor, angles: torch.Tensor) -> torch.Tenso
 
 def brief_pack(blurred: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
     """Kernel C on CUDA tensors, the plain version on CPU tensors."""
-    if blurred.device.type == "cpu":
+    if blurred.is_cpu:
         return brief_pack_plain(blurred, angles)
     kernels.check_cuda(blurred, "brief_pack blurred", torch.float32, 4)
     kernels.check_cuda(angles, "brief_pack angles", torch.float32, 2)

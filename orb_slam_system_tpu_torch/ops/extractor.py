@@ -13,8 +13,8 @@ the JAX package (its `_fused_gather` becomes the constructor argument
   * unfused (the JAX package's route off the TPU, extractor.py:176-182):
     kernel D gathers the raw 43x43 patches, the IC angle comes from their
     31x31 centre, and the blur runs as plain tensor ops.
-Either way the card runs kernel A once per level (FAST score + NMS) and
-kernel C once (rBRIEF pack).
+Either way the card runs kernel A once for all levels (FAST score + NMS)
+and kernel C once (rBRIEF pack).
 """
 
 from __future__ import annotations
@@ -109,7 +109,8 @@ class ORBExtractor:
         dev = img.device
         active = [l for l in range(len(levels)) if self.budgets[l] > 0]
         selections = fast_ops.select_keypoints_multi(
-            [fast_ops.fast_score_nms(levels[l], EDGE_MARGIN) for l in active],
+            fast_ops.fast_score_nms_levels([levels[l] for l in active],
+                                           EDGE_MARGIN),
             [self.budgets[l] for l in active],
             ini_th=float(cfg.ini_th_fast),
             min_th=float(cfg.min_th_fast),

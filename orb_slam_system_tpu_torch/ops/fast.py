@@ -7,12 +7,18 @@ so one map serves both thresholds (20, then 7 in cells without a strong
 corner) and the NMS. Selection ranks candidates per 16-pixel cell, then
 takes a per-level top-n with cells covered first.
 
-Kernel A (`fast_score_nms`, csrc/fast_score_nms.cu) computes score + border
-mask + 3x3 NMS in one pass on the card; `fast_score_map` and `nms3x3` are
-its plain PyTorch version, used for CPU tensors.
+Kernel A (`fast_score_nms_levels`, csrc/fast_score_nms.cu) computes score +
+border mask + 3x3 NMS for every pyramid level in one launch on the card;
+`fast_score_map` and `nms3x3` are its plain PyTorch version, used for CPU
+tensors. `tile_plan` is the kernel's grid: every level's 32x64 tiles on one
+axis.
 """
 
 from __future__ import annotations
+
+import ctypes
+import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -63,17 +69,89 @@ def nms3x3(score: torch.Tensor) -> torch.Tensor:
     return torch.where(score >= pooled, score, torch.zeros((), device=score.device))
 
 
-def fast_score_nms(img: torch.Tensor, border: int) -> torch.Tensor:
-    """nms3x3(fast_score_map(img, border)): kernel A on a CUDA tensor, the
-    plain version on a CPU tensor."""
-    if img.device.type == "cpu":
-        return nms3x3(fast_score_map(img, border))
-    kernels.check_cuda(img, "fast_score_nms img", torch.float32, 3)
-    B, H, W = img.shape
-    out = torch.empty_like(img)
+# Kernel A's tile and level table (csrc/fast_score_nms.cu).
+TILE_H, TILE_W = 32, 64
+MAX_LEVELS = 16
+
+
+class TilePlan(NamedTuple):
+    """Kernel A's grid over a list of level shapes: level l owns tiles
+    first_tile[l] .. first_tile[l+1]-1, row-major with tiles_x[l] tiles to
+    a row. first_pixel is the prefix of the levels' pixel counts (one
+    image)."""
+
+    tiles_x: tuple
+    first_tile: tuple   # n_levels + 1 entries; the last is the tile count
+    first_pixel: tuple  # n_levels + 1 entries
+
+
+@functools.lru_cache(maxsize=None)
+def tile_plan(shapes: tuple) -> TilePlan:
+    """The tile plan for level shapes ((H, W), ...)."""
+    tx = tuple(-(-w // TILE_W) for _h, w in shapes)
+    first, pix = [0], [0]
+    for t, (h, w) in zip(tx, shapes):
+        first.append(first[-1] + t * -(-h // TILE_H))
+        pix.append(pix[-1] + h * w)
+    return TilePlan(tx, tuple(first), tuple(pix))
+
+
+class _FastLevels(ctypes.Structure):
+    """The C struct FastLevels, passed by value to kernel A."""
+
+    _fields_ = [("src", ctypes.c_void_p * MAX_LEVELS),
+                ("dst", ctypes.c_void_p * MAX_LEVELS),
+                ("H", ctypes.c_int * MAX_LEVELS),
+                ("W", ctypes.c_int * MAX_LEVELS),
+                ("tiles_x", ctypes.c_int * MAX_LEVELS),
+                ("first_tile", ctypes.c_int * (MAX_LEVELS + 1)),
+                ("n_levels", ctypes.c_int),
+                ("border", ctypes.c_int)]
+
+
+def fast_score_nms_levels(levels, border: int) -> list:
+    """[nms3x3(fast_score_map(l, border)) for l in levels]: one launch of
+    kernel A over every level for CUDA tensors, the plain version for CPU
+    tensors. levels: f32[B,Hl,Wl] each, one batch size; the outputs are
+    contiguous per-level views of one allocation."""
+    if all(l.is_cpu for l in levels):
+        return [nms3x3(fast_score_map(l, border)) for l in levels]
+    n = len(levels)
+    if n > MAX_LEVELS:
+        raise ValueError(f"fast_score_nms: {n} levels, at most {MAX_LEVELS}")
+    B, dev = levels[0].shape[0], levels[0].get_device()
+    shapes = []
+    for i, l in enumerate(levels):
+        kernels.check_cuda(l, f"fast_score_nms level {i}", torch.float32, 3)
+        b, h, w = l.shape
+        if b != B or l.get_device() != dev:
+            raise ValueError(f"fast_score_nms: level {i} {tuple(l.shape)} on "
+                             f"{l.device}, level 0 {tuple(levels[0].shape)} "
+                             f"on {levels[0].device}")
+        shapes.append((h, w))
+    shapes = tuple(shapes)
+    plan = tile_plan(shapes)
+    flat = torch.empty(B * plan.first_pixel[-1], device=levels[0].device)
+    outs = [flat.as_strided((B, h, w), (h * w, w, 1), B * o)
+            for (h, w), o in zip(shapes, plan.first_pixel)]
+    tab = _FastLevels()
+    tab.src[:n] = [l.data_ptr() for l in levels]
+    tab.dst[:n] = [o.data_ptr() for o in outs]
+    tab.H[:n] = [h for h, _w in shapes]
+    tab.W[:n] = [w for _h, w in shapes]
+    tab.tiles_x[:n] = plan.tiles_x
+    tab.first_tile[:n + 1] = plan.first_tile
+    tab.n_levels = n
+    tab.border = int(border)
     kernels.launch("orb_fast_score_nms", "fast_score_nms",
-                   img.data_ptr(), out.data_ptr(), B, H, W, int(border))
-    return out
+                   ctypes.addressof(tab), B)
+    return outs
+
+
+def fast_score_nms(img: torch.Tensor, border: int) -> torch.Tensor:
+    """nms3x3(fast_score_map(img, border)) of one image batch: kernel A's
+    one-level call on a CUDA tensor, the plain version on a CPU tensor."""
+    return fast_score_nms_levels([img], border)[0]
 
 
 def _cell_candidates(score, ini_th, min_th, cell, topk_per_cell):

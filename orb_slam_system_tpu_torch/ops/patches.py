@@ -56,7 +56,7 @@ def gather_patches_plain(img: torch.Tensor, xy: torch.Tensor, radius: int) -> to
 def gather_patches(img: torch.Tensor, xy: torch.Tensor, radius: int) -> torch.Tensor:
     """Kernel D on a CUDA image, the plain version on a CPU image. Same
     contract as gather_patches_plain; xy is i32[B,N,2] on the card."""
-    if img.device.type == "cpu":
+    if img.is_cpu:
         return gather_patches_plain(img, xy, radius)
     kernels.check_cuda(img, "gather_patches img", torch.float32, 3)
     kernels.check_cuda(xy, "gather_patches xy", torch.int32, 3)
@@ -68,6 +68,8 @@ def gather_patches(img: torch.Tensor, xy: torch.Tensor, radius: int) -> torch.Te
         raise ValueError(f"radius {radius} does not fit a {H}x{W} image")
     N = xy.shape[1]
     out = torch.empty((B, N, P, P), device=img.device)
+    if N == 0:
+        return out
     kernels.launch("orb_gather_patches", "gather_patches", img.data_ptr(),
                    xy.data_ptr(), out.data_ptr(), B, N, H, W, radius)
     return out
@@ -117,7 +119,7 @@ def gather_blur_moments(canvas: torch.Tensor, xy: torch.Tensor,
                         radius: int = 21):
     """Kernel B on a CUDA canvas, the plain version on a CPU canvas. Same
     contract as gather_blur_moments_plain; xy is i32[B,N,2] on the card."""
-    if canvas.device.type == "cpu":
+    if canvas.is_cpu:
         return gather_blur_moments_plain(canvas, xy, radius)
     kernels.check_cuda(canvas, "gather_blur_moments canvas", torch.float32, 3)
     kernels.check_cuda(xy, "gather_blur_moments xy", torch.int32, 3)

@@ -7,7 +7,9 @@ first use, into ``build/torch_kernels/<hash>/`` at the repository root,
 keyed by a hash of the sources and flags; nothing is built at import time.
 
 Each wrapper counts its launches in ``LAUNCHES`` (plain integers), so a run
-can show that its main path really went through the kernels.
+can show that its main path really went through the kernels. ``launch``
+resolves each C entry point once, when the library loads; after that a
+launch takes no lock and looks nothing up by name.
 """
 
 from __future__ import annotations
@@ -37,7 +39,7 @@ _VP = ctypes.c_void_p
 _I = ctypes.c_int
 # C entry points: name -> argtypes (every function returns cudaError_t).
 _SIGNATURES = {
-    "orb_fast_score_nms": [_VP, _VP, _I, _I, _I, _I, _VP],
+    "orb_fast_score_nms": [_VP, _I, _VP],   # (FastLevels*, B, stream)
     "orb_gather_blur_moments": [_VP, _VP, _VP, _VP, _VP, _VP,
                                 _I, _I, _I, _I, _I, _VP],
     "orb_brief_pack": [_VP, _VP, _VP, _VP, _I, _VP],
@@ -46,6 +48,7 @@ _SIGNATURES = {
 
 _lib = None
 _lock = threading.Lock()
+_FNS: dict = {}   # C entry point name -> ctypes function, filled by library()
 
 
 def reset_launch_counts() -> None:
@@ -108,31 +111,36 @@ def library():
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
+            fns = {}
             for name, argtypes in _SIGNATURES.items():
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
+                fns[name] = fn
             lib.orb_cuda_error_string.argtypes = [ctypes.c_int]
             lib.orb_cuda_error_string.restype = ctypes.c_char_p
             _lib = lib
+            _FNS.update(fns)
     return _lib
 
 
 def launch(name: str, counter: str, *args) -> None:
     """Call C entry point `name` on the current stream of the current
     device; raise if the launch reports an error, else count it."""
-    lib = library()
-    stream = torch.cuda.current_stream().cuda_stream
-    rc = getattr(lib, name)(*args, stream)
+    fn = _FNS.get(name)
+    if fn is None:
+        library()
+        fn = _FNS[name]
+    rc = fn(*args, torch.cuda.current_stream().cuda_stream)
     if rc != 0:
-        msg = lib.orb_cuda_error_string(rc).decode()
+        msg = _lib.orb_cuda_error_string(rc).decode()
         raise RuntimeError(f"{name}: CUDA error {rc}: {msg}")
     LAUNCHES[counter] += 1
 
 
 def check_cuda(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int):
     """Wrapper-side argument check for a kernel input."""
-    if t.device.type != "cuda":
+    if not t.is_cuda:
         raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
     if t.dtype != dtype:
         raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")

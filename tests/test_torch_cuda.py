@@ -37,6 +37,62 @@ def test_fast_score_nms_bit_exact(dev, h, w, rng):
     assert torch.equal(got, want)
 
 
+def _rendered_pyramid(dev, h=480, w=640):
+    from orb_slam_system_tpu_torch.dataio.synthetic import (
+        PlanarSceneRenderer, make_texture, orbit_trajectory)
+    from orb_slam_system_tpu_torch.ops.pyramid import build_pyramid
+    K = np.array([[520.0, 0, w / 2], [0, 520.0, h / 2], [0, 0, 1]])
+    r = PlanarSceneRenderer(K, w, h, texture=make_texture(2048, 8, 7),
+                            tex_scale=440.0)
+    img = np.clip(r.render(orbit_trajectory(2, 0.35, -2.0, 0.3)[1]), 0, 255)
+    img = torch.from_numpy(img.astype(np.uint8).astype(np.float32)).to(dev)
+    return build_pyramid(img[None], 8, 1.2)
+
+
+@pytest.mark.parametrize("case", ["pyramid_640x480_b1", "odd_sizes_b2"])
+def test_fast_score_nms_levels_bit_exact(dev, rng, case):
+    """One launch over all levels equals the plain version level by level:
+    the 8 levels of a rendered 640x480 frame, and odd sizes at B=2."""
+    if case == "pyramid_640x480_b1":
+        levels = _rendered_pyramid(dev)
+    else:
+        levels = [torch.from_numpy(rng.integers(0, 256, (2, h, w))
+                                   .astype(np.float32)).to(dev)
+                  for h, w in [(161, 214), (64, 70), (33, 97), (200, 41), (40, 40)]]
+    got = fast.fast_score_nms_levels(levels, 19)
+    torch.cuda.synchronize()
+    assert len(got) == len(levels)
+    for lvl, g in zip(levels, got):
+        assert g.shape == lvl.shape and g.is_contiguous()
+        assert torch.equal(g, fast.nms3x3(fast.fast_score_map(lvl, 19)))
+
+
+def test_fast_score_nms_levels_rejects(dev):
+    """Mixed batch sizes, more levels than the table holds, and a CPU level
+    among CUDA ones raise."""
+    a = torch.zeros((1, 64, 64), device=dev)
+    with pytest.raises(ValueError):
+        fast.fast_score_nms_levels([a, torch.zeros((2, 64, 64), device=dev)], 19)
+    with pytest.raises(ValueError):
+        fast.fast_score_nms_levels([a] * (fast.MAX_LEVELS + 1), 19)
+    with pytest.raises(ValueError):
+        fast.fast_score_nms_levels([a, torch.zeros((1, 64, 64))], 19)
+
+
+def test_extractor_launches_kernel_a_once(dev):
+    """ORBExtractor runs kernel A once per call, for all its levels."""
+    from orb_slam_system_tpu_torch.config import ORBConfig
+    from orb_slam_system_tpu_torch.ops.extractor import ORBExtractor
+    from orb_slam_system_tpu_torch.utils import kernels
+    img = _rendered_pyramid(dev)[0]
+    ex = ORBExtractor(ORBConfig(n_features=1000), 480, 640)
+    ex(img)
+    kernels.reset_launch_counts()
+    ex(img)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["fast_score_nms"] == 1
+
+
 def test_gather_blur_moments(dev, rng):
     canvas = torch.from_numpy(rng.uniform(0, 255, (2, 300, 200)).astype(np.float32)).to(dev)
     xy = torch.from_numpy(np.stack([rng.integers(-5, 210, (2, 300)),
@@ -64,16 +120,30 @@ def test_wrappers_check_arguments(dev):
         fast.fast_score_nms(torch.zeros((1, 64, 128), device=dev)[:, :, ::2], 19)
 
 
-@pytest.mark.parametrize("radius", [21, 5])
-def test_gather_patches_bit_exact(dev, rng, radius):
+@pytest.mark.parametrize("radius", [21, 5, 0])
+@pytest.mark.parametrize("n", [2048, 333])
+def test_gather_patches_bit_exact(dev, rng, radius, n):
     """Kernel D against its plain version, including clipped edge
-    keypoints, at the extractor's radius and one other."""
+    keypoints, at the extractor's radius and two others, with N a multiple
+    of 4 and not."""
     canvas = torch.from_numpy(rng.uniform(0, 255, (2, 300, 200)).astype(np.float32)).to(dev)
-    xy = torch.from_numpy(np.stack([rng.integers(-5, 210, (2, 2048)),
-                                    rng.integers(-5, 310, (2, 2048))],
-                                   -1).astype(np.int32)).to(dev)
+    xy = np.stack([rng.integers(-5, 210, (2, n)), rng.integers(-5, 310, (2, n))],
+                  -1).astype(np.int32)
+    xy[:, :4] = [[0, 0], [199, 299], [-30, 310], [230, 1]]
+    xy = torch.from_numpy(xy).to(dev)
     assert torch.equal(patches.gather_patches(canvas, xy, radius),
                        patches.gather_patches_plain(canvas, xy, radius))
+
+
+def test_gather_patches_no_keypoints(dev):
+    """N = 0: an empty [B, 0, P, P] result and no launch."""
+    from orb_slam_system_tpu_torch.utils import kernels
+    kernels.reset_launch_counts()
+    out = patches.gather_patches(torch.zeros((2, 64, 64), device=dev),
+                                 torch.zeros((2, 0, 2), dtype=torch.int32,
+                                             device=dev), 21)
+    assert tuple(out.shape) == (2, 0, 43, 43)
+    assert kernels.LAUNCHES["gather_patches"] == 0
 
 
 def test_unfused_route_matches_fused_route(dev):

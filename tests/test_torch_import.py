@@ -11,7 +11,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _IMPORT_ALL = """
 import importlib, pkgutil, sys
 import orb_slam_system_tpu_torch as pkg
-import chip_smoke
+import chip_smoke, kernel_times
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for n in names:
     importlib.import_module(n)
@@ -57,8 +57,9 @@ def _run(code):
 
 
 def test_port_never_imports_jax():
-    """Every module of the port (walked, so new ones are covered) and
-    chip_smoke.py import without jax or the JAX package."""
+    """Every module of the port (walked, so new ones are covered),
+    chip_smoke.py and kernel_times.py import without jax or the JAX
+    package."""
     assert int(_run(_IMPORT_ALL).split()[-1]) >= 32
 
 

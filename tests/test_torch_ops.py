@@ -7,6 +7,7 @@ CPU tests use). Tolerances are stated per test.
 
 from types import SimpleNamespace
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -60,6 +61,64 @@ def test_fast_score_nms_exact(source, rng):
     want = np.asarray(jfast.nms3x3(jfast.fast_score_map(jnp.asarray(img), 19)))
     got = fast.fast_score_nms(torch.from_numpy(img), 19).numpy()
     np.testing.assert_array_equal(got, want)
+
+
+def test_fast_score_nms_levels_matches_jax():
+    """Kernel A's all-level call, plain version: every level of a rendered
+    320x240 8-level pyramid equals the JAX nms3x3(fast_score_map(., 19)),
+    exactly (only subtract/min/max)."""
+    img = _rendered(240, 320)[None]
+    levels = [np.array(l) for l in
+              jpyramid.build_pyramid(jnp.asarray(img), 8, 1.2)]
+    got = fast.fast_score_nms_levels([torch.from_numpy(l) for l in levels], 19)
+    # One jitted program for all levels: eager JAX takes ~15 s here.
+    want = jax.jit(lambda ls: [jfast.nms3x3(jfast.fast_score_map(l, 19))
+                               for l in ls])([jnp.asarray(l) for l in levels])
+    assert len(got) == len(want) == 8
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+@pytest.mark.parametrize("h,w,n_tiles", [(480, 640, 512), (240, 320, None)])
+def test_tile_plan_covers_every_pixel_once(h, w, n_tiles):
+    """Kernel A's grid: tile t belongs to the last level whose first tile
+    is <= t, and is a TILE_H x TILE_W block (row-major within the level);
+    over all tiles every pixel of every level is covered exactly once."""
+    shapes = tuple(pyramid.level_shapes(h, w, 8, 1.2))
+    plan = fast.tile_plan(shapes)
+    first = np.asarray(plan.first_tile)
+    cover = [np.zeros(s, np.int32) for s in shapes]
+    for t in range(first[-1]):
+        lvl = int(np.searchsorted(first, t, side="right")) - 1
+        local = t - first[lvl]
+        y0 = (local // plan.tiles_x[lvl]) * fast.TILE_H
+        x0 = (local % plan.tiles_x[lvl]) * fast.TILE_W
+        assert y0 < shapes[lvl][0] and x0 < shapes[lvl][1]
+        cover[lvl][y0:y0 + fast.TILE_H, x0:x0 + fast.TILE_W] += 1
+    assert all((c == 1).all() for c in cover)
+    if n_tiles is not None:
+        assert first[-1] == n_tiles
+
+
+def test_launch_counts_and_raises(monkeypatch):
+    """kernels.launch calls the resolved C function with the current stream
+    last, counts a launch when it returns 0, raises without counting
+    otherwise, and never goes back to the library once resolved."""
+    from orb_slam_system_tpu_torch.utils import kernels
+    calls = []
+    monkeypatch.setitem(kernels._FNS, "orb_fake",
+                        lambda *a: calls.append(a) or a[0])
+    monkeypatch.setitem(kernels.LAUNCHES, "fake", 0)
+    monkeypatch.setattr(kernels, "library", lambda: pytest.fail("reloaded"))
+    monkeypatch.setattr(kernels, "_lib", SimpleNamespace(
+        orb_cuda_error_string=lambda rc: b"invalid argument"))
+    monkeypatch.setattr(kernels.torch.cuda, "current_stream",
+                        lambda: SimpleNamespace(cuda_stream=77))
+    kernels.launch("orb_fake", "fake", 0, 5)
+    assert calls == [(0, 5, 77)] and kernels.LAUNCHES["fake"] == 1
+    with pytest.raises(RuntimeError, match="CUDA error 1: invalid argument"):
+        kernels.launch("orb_fake", "fake", 1)
+    assert kernels.LAUNCHES["fake"] == 1
 
 
 def test_pyramid_matches_jax():
