@@ -10,12 +10,17 @@ Phases, each of which fails the run (exit code != 0) when it fails:
   3. hold each kernel against its plain PyTorch version on the card, at the
      slice's shapes (all 8 pyramid levels of a rendered 640x480 frame, in
      one launch, for kernel A; its 1024 keypoint slots for kernels B, C
-     and D), and time the kernel, its plain version and, where one PyTorch
-     call computes the same function, that call (torch.gather for kernel
-     D): call time from CUDA events around 20 calls, and the kernel's own
-     device time per launch from torch.profiler; then run the extractor's
-     unfused route (kernels A and D) over 10 frames, with the launch
-     counts read around it, and hold frame 0 against the fused route;
+     and D, and the init builder's 2048 for both modes of kernel B), and
+     time the kernel, its plain version and, where one PyTorch call
+     computes the same function, that call (torch.gather for kernel D):
+     call time from CUDA events around 20 calls, and the kernel's own
+     device time per launch from torch.profiler; kernel B's describe mode
+     (the System's route: canvas to angle and descriptor in one launch) is
+     timed beside the chain it replaces (blur mode -> angles_from_moments
+     -> kernel C), each as the device time of every kernel it launches;
+     then run the extractor's unfused route (kernels A, D and C) over 10
+     frames, with the launch counts read around it, and hold frame 0
+     against the fused route;
   4. run the first slice at full width: a 30-frame 640x480 orbit over the
      textured plane (1000 features, 8 levels), map seeded from frame 0's
      depth at its true pose, frames 1-29 tracked through FrameBuilder.build
@@ -30,7 +35,8 @@ Phases, each of which fails the run (exit code != 0) when it fails:
      local BA, and check the reference's bars (state OK, >= 3 keyframes,
      > 150 map points, ATE < 3 cm) plus >= 90% of the frames after
      initialization tracked, and that every kernel of the path launched
-     (kernel A once per frame build).
+     (kernel A and kernel B's describe mode once per frame build, kernel C
+     never).
 The second-to-last line is a JSON object with each kernel's launches, error,
 times and bound; the last line is {"ok": true, "device": {...}}. Without
 CUDA, or without the package beside it, the script exits non-zero and prints
@@ -118,6 +124,26 @@ def device_ms(torch, fn, kernel, reps: int = 20, launches: int = 1) -> float:
     fail(f"the profiler never showed all {want} launches of kernel {kernel!r}")
 
 
+def stage_device_ms(torch, fn, reps: int = 20):
+    """(device ms per call of fn summed over every kernel it launches, the
+    number of kernels per call). The count comes from profiling single
+    calls (the most of 3, as the profiler can drop records), the time from
+    device_ms over all of fn's kernels."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    n = 0
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        n = max(n, sum(e.count for e in prof.key_averages()
+                       if str(e.device_type).endswith("CUDA")))
+    if n == 0:
+        fail("the profiler saw no device kernel of the stage")
+    return n * device_ms(torch, fn, None, reps, n), n
+
+
 def pose_error(T, T_gt):
     """(camera-centre error in m, rotation error in degrees)."""
     C = -T[:3, :3].T @ T[:3, 3]
@@ -132,26 +158,35 @@ def profile_device(torch, label: str, fn, wall_ms) -> None:
     """Print how many device kernels one call of fn launches, their summed
     device time (torch.profiler), and the device's idle share against the
     unprofiled wall time wall_ms (None: the host-clock time of the profiled
-    call itself, which the profiler inflates). A measurement only: if the
-    profiler sees nothing here, say so and go on."""
+    call itself, which the profiler inflates). An exception from fn fails
+    the run; if the profiler itself fails, say so and go on."""
     from torch.profiler import ProfilerActivity, profile
+    prof, why = profile(activities=[ProfilerActivity.CUDA]), None
     try:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        if wall_ms is None:
-            wall_ms = 1e3 * (time.perf_counter() - t0)
-        evs = [e for e in prof.key_averages()
-               if str(e.device_type).endswith("CUDA")]
-        n = sum(e.count for e in evs)
-        dev_ms = sum(e.self_device_time_total for e in evs) / 1e3
-        print(f"{label}: {n} device kernels, {dev_ms:.3f} ms summed device "
-              f"time (profiler), wall {wall_ms:.3f} ms, device idle share "
-              f"{1.0 - dev_ms / wall_ms:.3f}", flush=True)
-    except Exception as e:  # noqa: BLE001 - an optional measurement
-        print(f"{label}: device kernels not measured ({e})", flush=True)
+        prof.start()
+    except Exception as e:  # noqa: BLE001 - the profiler's own failure
+        prof, why = None, e
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    if wall_ms is None:
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    if prof is not None:
+        try:
+            prof.stop()
+            evs = [e for e in prof.key_averages()
+                   if str(e.device_type).endswith("CUDA")]
+        except Exception as e:  # noqa: BLE001 - the profiler's own failure
+            prof, why = None, e
+    if prof is None:
+        print(f"{label}: device kernels not measured ({why})", flush=True)
+        return
+    n = sum(e.count for e in evs)
+    dev_ms = sum(e.self_device_time_total for e in evs) / 1e3
+    print(f"{label}: {n} device kernels, {dev_ms:.3f} ms summed device "
+          f"time (profiler), wall {wall_ms:.3f} ms, device idle share "
+          f"{1.0 - dev_ms / wall_ms:.3f}", flush=True)
 
 
 def main() -> None:
@@ -252,39 +287,113 @@ def main() -> None:
           f"{bytes_a:.4f} ms, min/max issue {minmax_a:.4f} ms; {card}",
           flush=True)
 
+    def check_kernel_b(canvas, xy):
+        """Both modes of kernel B against their plain versions: blur mode
+        bit-exact (moments within 0.5); describe mode's moments bit-equal
+        to blur mode's, its angle to angles_from_moments of them, its
+        descriptors to brief_pack_plain of the plain blur at that angle."""
+        kb, km = patches.gather_blur_moments(canvas, xy, 21)
+        pb, pm = patches.gather_blur_moments_plain(canvas, xy, 21)
+        if not torch.equal(kb, pb):
+            fail(f"kernel B blur differs at {xy.shape[1]} slots: "
+                 f"{int((kb != pb).sum())} values, max "
+                 f"{float((kb - pb).abs().max())}")
+        mom_err = float((km - pm).abs().max())
+        if not mom_err <= 0.5:
+            fail(f"kernel B moments differ by {mom_err} (> 0.5)")
+        dm, da, dd = patches.gather_blur_describe(canvas, xy, 21)
+        if not torch.equal(dm, km):
+            fail(f"describe mode's moments differ from blur mode's in "
+                 f"{int((dm != km).sum())} values")
+        ka = angles_from_moments(km)
+        if not torch.equal(da, ka):
+            fail(f"describe mode's angle differs from angles_from_moments in "
+                 f"{int((da != ka).sum())} keypoints, max "
+                 f"{float((da - ka).abs().max())}")
+        pd = brief.brief_pack_plain(pb, da)
+        if not torch.equal(dd, pd):
+            fail(f"describe mode's descriptors differ in "
+                 f"{int((dd != pd).any(-1).sum())} keypoints")
+        flips = int((_angle_bins(da) != _angle_bins(angles_from_moments(pm)))
+                    .sum())
+        print(f"kernel B at {xy.shape[1]} slots, canvas {tuple(canvas.shape)}: "
+              f"blur mode bit-exact, moments max err {mom_err:.3g} (angle-bin "
+              f"flips against the plain moments: {flips}); describe mode's "
+              f"moments, angle and descriptors bit-equal", flush=True)
+        return pb, pm, mom_err
+
+    ex_init = FrameBuilder(cfg, dev, n_features=2 * cfg.orb.n_features).extractor
+    check_kernel_b(*ex_init.detect(img)[1:])
     _, canvas, xy_all = ex.detect(img)
-    kb, km = patches.gather_blur_moments(canvas, xy_all, 21)
-    pb, pm = patches.gather_blur_moments_plain(canvas, xy_all, 21)
-    if not torch.equal(kb, pb):
-        fail(f"kernel B blur differs: {int((kb != pb).sum())} values, max "
-             f"{float((kb - pb).abs().max())}")
-    mom_err = float((km - pm).abs().max())
-    if not mom_err <= 0.5:
-        fail(f"kernel B moments differ by {mom_err} (> 0.5)")
+    pb, pm, mom_err = check_kernel_b(canvas, xy_all)
+    n_kp = xy_all.shape[1]
+    pb_side = pb.shape[-1]
+    # Bytes the gathers of kernels B and D must read: the canvas inside the
+    # union of the keypoints' clipped 43x43 windows. The rest of the canvas
+    # is filler (each level padded to the widest, rows rounded up to 8) and
+    # canvas that no keypoint of this frame reaches.
+    Bc, Hc, Wc = canvas.shape
+    flat = patches.gather_flat_index(xy_all, 21, Hc, Wc)
+    n_read = int(torch.zeros((Bc, Hc * Wc), dtype=torch.bool, device=dev)
+                 .scatter_(1, flat, True).sum())
+    # Operations per keypoint: the two blur passes over the 37x43 and
+    # 37x37 outputs (blur mode), the moments over the 749-pixel circle,
+    # and per rBRIEF test two bf16 roundings and a compare.
+    ops_pass1 = 2 * 7 * pb_side * 43
+    ops_blur = n_kp * (ops_pass1 + 2 * 7 * pb_side ** 2 + 4 * 749)
+    ops_c = 3.0 * 256 * n_kp
     run_b = lambda: patches.gather_blur_moments(canvas, xy_all, 21)
     ms_b = cuda_ms(torch, run_b)
     dev_b = device_ms(torch, run_b, "gather_blur_moments_kernel")
     plain_b = cuda_ms(torch, lambda: patches.gather_blur_moments_plain(
         canvas, xy_all, 21))
-    n_kp = xy_all.shape[1]
-    pb_side = kb.shape[-1]
+    # Blur mode: the windows' canvas and the centres read once, blurred
+    # patches and moments written once.
+    bound_b = bound_ms(4.0 * (n_read + xy_all.numel() + pb.numel()
+                              + pm.numel()), ops_blur)
+    run_s = lambda: patches.gather_blur_describe(canvas, xy_all, 21)
+    ms_s = cuda_ms(torch, run_s)
+    dev_s, n_s = stage_device_ms(torch, run_s)
+    plain_s = cuda_ms(torch, lambda: patches.gather_blur_describe_plain(
+        canvas, xy_all, 21))
+
+    def run_chain():
+        blurred, mom = patches.gather_blur_moments(canvas, xy_all, 21)
+        return brief.brief_pack(blurred, angles_from_moments(mom))
+    ms_chain = cuda_ms(torch, run_chain)
+    dev_chain, n_chain = stage_device_ms(torch, run_chain)
+    # Describe stage: the windows' canvas and the centres read once;
+    # moments, angle and descriptor written once; the first pass, the second
+    # at the 512 test points, the moments, the tests. The chain moves the
+    # blurred patch out and back in, and the angle through device memory.
+    bound_s = bound_ms(4.0 * (n_read + xy_all.numel() + 11 * n_kp),
+                       n_kp * (ops_pass1 + 2 * 7 * 512 + 4 * 749) + ops_c)
+    bound_chain = bound_ms(4.0 * (n_read + xy_all.numel()
+                                  + 2 * pb.numel() + 14 * n_kp),
+                           ops_blur + ops_c)
     report["gather_blur_moments"] = dict(
         source="orb_slam_system_tpu_torch/csrc/gather_blur_moments.cu",
         replaces="orb_slam_system_tpu/ops/gather_pallas.py:336",
-        max_abs_err=mom_err, ms=ms_b, device_ms=dev_b, plain_ms=plain_b,
-        # Canvas and centres read once, blurred patches and moments
-        # written once; row + column blur passes and the moments.
-        bound=bound_ms(4.0 * (canvas.numel() + xy_all.numel() + kb.numel()
-                              + km.numel()),
-                       n_kp * (2 * 7 * pb_side * 43 + 2 * 7 * pb_side ** 2
-                               + 4 * 31 * 31)),
-        library_ms=None)
-    n_bins_b = int((_angle_bins(angles_from_moments(km))
-                    != _angle_bins(angles_from_moments(pm))).sum())
-    print(f"kernel B gather_blur_moments: canvas {tuple(canvas.shape)}, "
-          f"{xy_all.shape[1]} keypoints; blur bit-exact, moments max err "
-          f"{mom_err:.3g}, angle-bin flips {n_bins_b}; call {ms_b:.4f} ms, "
-          f"device {dev_b:.4f} ms (plain {plain_b:.4f} ms), {card}", flush=True)
+        mode="describe", max_abs_err=mom_err, ms=ms_s, device_ms=dev_s,
+        plain_ms=plain_s, bound=bound_s, library_ms=None,
+        canvas_floats=canvas.numel(), canvas_floats_read=n_read,
+        blur_mode=dict(ms=ms_b, device_ms=dev_b, plain_ms=plain_b,
+                       bound_ms=bound_b[0]),
+        replaced_chain=dict(ms=ms_chain, device_ms=dev_chain,
+                            kernels=n_chain, bound_ms=bound_chain[0]))
+    print(f"kernel B describe mode (the System's route) at {n_kp} slots, "
+          f"{n_read} of the canvas's {canvas.numel()} floats inside the "
+          f"keypoints' windows: "
+          f"{n_s} kernel(s), device {dev_s:.5f} ms, call {ms_s:.4f} ms (plain "
+          f"{plain_s:.4f} ms), bound {bound_s[0]:.5f} ms ({bound_s[1]}); the "
+          f"chain it replaces (blur mode -> angles_from_moments -> kernel C): "
+          f"{n_chain} kernels, device {dev_chain:.5f} ms, call "
+          f"{ms_chain:.4f} ms, bound {bound_chain[0]:.5f} ms "
+          f"({bound_chain[1]}); blur mode: device {dev_b:.5f} ms, call "
+          f"{ms_b:.4f} ms (plain {plain_b:.4f} ms), bound {bound_b[0]:.5f} "
+          f"ms ({bound_b[1]}); {card}", flush=True)
+    if n_s != 1:
+        fail(f"the describe stage launched {n_s} kernels, not 1")
 
     ang = angles_from_moments(pm)
     kc = brief.brief_pack(pb, ang)
@@ -312,8 +421,6 @@ def main() -> None:
     pd = patches.gather_patches_plain(canvas, xy_all, 21)
     if not torch.equal(kd, pd):
         fail(f"kernel D differs in {int((kd != pd).sum())} values")
-    Bc, Hc, Wc = canvas.shape
-    flat = patches.gather_flat_index(xy_all, 21, Hc, Wc)
     flat_canvas = canvas.reshape(Bc, Hc * Wc)
     lib = torch.gather(flat_canvas, 1, flat).reshape(kd.shape)
     if not torch.equal(lib, kd):
@@ -331,16 +438,16 @@ def main() -> None:
         replaces="orb_slam_system_tpu/ops/gather_pallas.py:113",
         max_abs_err=float((kd - pd).abs().max()), ms=ms_d, device_ms=dev_d,
         plain_ms=plain_d,
-        # A copy: canvas and centres read once, patches written once.
-        bound=bound_ms(4.0 * (canvas.numel() + xy_all.numel() + kd.numel()),
-                       0.0),
+        # A copy: the windows' canvas and the centres read once, patches
+        # written once.
+        bound=bound_ms(4.0 * (n_read + xy_all.numel() + kd.numel()), 0.0),
         library_ms=lib_d, library_device_ms=lib_dev_d)
     print(f"kernel D gather_patches: {tuple(kd.shape)} bit-exact; call "
           f"{ms_d:.4f} ms, device {dev_d:.4f} ms (plain {plain_d:.4f} ms; "
           f"torch.gather over precomputed indices: call {lib_d:.4f} ms, "
           f"device {lib_dev_d:.4f} ms), {card}", flush=True)
 
-    # The extractor's unfused route (kernel D); counts read around it.
+    # The extractor's unfused route (kernels A, D, C); counts read around it.
     fb_unfused = FrameBuilder(cfg, dev, fused_gather=False)
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
@@ -348,7 +455,7 @@ def main() -> None:
                for i in range(N_UNFUSED_FRAMES)]
     torch.cuda.synchronize()
     unfused_launches = dict(kernels.LAUNCHES)
-    for name in ("fast_score_nms", "gather_patches"):
+    for name in ("fast_score_nms", "gather_patches", "brief_pack"):
         if unfused_launches[name] != N_UNFUSED_FRAMES:
             fail(f"the unfused route launched {name} "
                  f"{unfused_launches[name]} times in {N_UNFUSED_FRAMES} frames")
@@ -439,10 +546,11 @@ def main() -> None:
         fail(f"{int(flips.sum())} angle-bin flips against the CPU path")
     print(f"frame 0 vs the CPU path: keypoints identical, {int(flips.sum())} "
           f"angle-bin flips, descriptors equal elsewhere", flush=True)
-    for name in ("fast_score_nms", "gather_blur_moments", "brief_pack"):
-        if launches[name] != N_FRAMES:
+    for name, want in (("fast_score_nms", N_FRAMES),
+                       ("gather_blur_describe", N_FRAMES), ("brief_pack", 0)):
+        if launches[name] != want:
             fail(f"kernel {name} launched {launches[name]} times in the "
-                 f"slice's {N_FRAMES} frame builds")
+                 f"slice's {N_FRAMES} frame builds, not {want}")
     print(f"launches in the slice: {launches}", flush=True)
 
     # Where the time goes: kernels launched, device time, idle share.
@@ -529,17 +637,19 @@ def main() -> None:
     if tracked_share < MIN_TRACKED_SHARE:
         fail(f"system tracked {100 * tracked_share:.1f}% of the frames after "
              f"initialization (< {100 * MIN_TRACKED_SHARE:g}%)")
-    for name in ("fast_score_nms", "gather_blur_moments", "brief_pack"):
-        if system_launches[name] <= 0:
-            fail(f"kernel {name} was not launched by the system run")
-    if system_launches["fast_score_nms"] != len(recs):
-        fail(f"kernel A launched {system_launches['fast_score_nms']} times "
-             f"for {len(recs)} frame builds (one launch per build expected)")
+    for name, want in (("fast_score_nms", len(recs)),
+                       ("gather_blur_describe", len(recs)), ("brief_pack", 0)):
+        if system_launches[name] != want:
+            fail(f"kernel {name} launched {system_launches[name]} times for "
+                 f"{len(recs)} frame builds in the system run, not {want}")
 
-    # Launches of each kernel on the path that runs it: the System for A, B
-    # and C, the extractor's unfused route for D.
-    path_launches = dict(system_launches,
-                         gather_patches=unfused_launches["gather_patches"])
+    # Launches of each kernel on the path that runs it: the System for A and
+    # B (its describe mode), the extractor's unfused route for C and D.
+    path_launches = dict(
+        fast_score_nms=system_launches["fast_score_nms"],
+        gather_blur_moments=system_launches["gather_blur_describe"],
+        brief_pack=unfused_launches["brief_pack"],
+        gather_patches=unfused_launches["gather_patches"])
     print(card, flush=True)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": r["source"],
@@ -548,7 +658,9 @@ def main() -> None:
          "device_ms": r["device_ms"], "plain_ms": r["plain_ms"],
          "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
          "library_ms": r["library_ms"],
-         "library_device_ms": r.get("library_device_ms")}
+         "library_device_ms": r.get("library_device_ms"),
+         **{k: r[k] for k in ("mode", "canvas_floats", "canvas_floats_read",
+                              "blur_mode", "replaced_chain") if k in r}}
         for name, r in report.items()]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -15,11 +15,15 @@ git-ignored directory, can be timed against this one in turns on one card:
 
 The inputs are chip_smoke.py's: frame 0 of its 640x480 orbit, 1000 features
 in 1024 slots. Kernel A is timed inside ORBExtractor.detect, as the device
-time of all its launches in one frame (their count is printed); kernels B,
-C and D, and torch.gather over kernel D's flat indices (D's library
-yardstick), through their wrappers. "device_ms": the kernel's own device
-time per frame from torch.profiler; "call_ms": CUDA events around 20 calls
-(not for A, whose calls sit inside detect). chip_smoke.py holds the kernels against their
+time of all its launches in one frame (their count is printed); kernels B
+(its blur mode), C and D, and torch.gather over kernel D's flat indices
+(D's library yardstick), through their wrappers. "describe_stage" is every
+device kernel between the canvas and the angles and descriptors: kernel
+B's describe mode (patches.gather_blur_describe) where the checkout has it,
+else the chain gather_blur_moments -> angles_from_moments -> brief_pack;
+"kernels" is how many it launches per frame. "device_ms": the kernels' own
+device time per frame from torch.profiler; "call_ms": CUDA events around
+20 calls (not for A, whose calls sit inside detect). chip_smoke.py holds the kernels against their
 plain versions; this script only times them. Prints one JSON line with the
 card's name and power limit; exits non-zero without CUDA.
 """
@@ -35,7 +39,7 @@ import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, HERE)
-from chip_smoke import cuda_ms, device_ms, fail  # noqa: E402
+from chip_smoke import cuda_ms, device_ms, fail, stage_device_ms  # noqa: E402
 
 
 def main() -> None:
@@ -99,6 +103,17 @@ def main() -> None:
             ("torch.gather", lambda: torch.gather(flat_canvas, 1, flat), None)):
         times[name] = dict(call_ms=cuda_ms(torch, fn),
                            device_ms=device_ms(torch, fn, kernel))
+    if hasattr(patches, "gather_blur_describe"):
+        stage = lambda: patches.gather_blur_describe(canvas, xy, 21)
+    else:
+        # Only for checkouts older than the describe mode; remove this
+        # branch once the checkouts timed against this one all have it.
+        def stage():
+            b, m = patches.gather_blur_moments(canvas, xy, 21)
+            return brief.brief_pack(b, angles_from_moments(m))
+    stage_ms, n_kernels = stage_device_ms(torch, stage)
+    times["describe_stage"] = dict(call_ms=cuda_ms(torch, stage),
+                                   device_ms=stage_ms, kernels=n_kernels)
     print(json.dumps({"root": root, "card": card, "kernels": times}),
           flush=True)
 

@@ -8,13 +8,15 @@ validity bit, and keypoint coordinates come out in level-0 pixels.
 Two routes gather the keypoints' patches from one all-level canvas, as in
 the JAX package (its `_fused_gather` becomes the constructor argument
 `fused_gather`):
-  * fused (the default, the JAX package's TPU route): kernel B gathers,
-    blurs and reduces the IC moments in one pass;
+  * fused (the default, the JAX package's TPU route): kernel B's describe
+    mode goes from the canvas to the IC angle and the rBRIEF descriptor in
+    one launch (gather, blur, moments, angle, tests); the blurred patch
+    never reaches device memory;
   * unfused (the JAX package's route off the TPU, extractor.py:176-182):
     kernel D gathers the raw 43x43 patches, the IC angle comes from their
-    31x31 centre, and the blur runs as plain tensor ops.
-Either way the card runs kernel A once for all levels (FAST score + NMS)
-and kernel C once (rBRIEF pack).
+    31x31 centre, the blur runs as plain tensor ops and kernel C packs the
+    descriptor.
+Either way the card runs kernel A once for all levels (FAST score + NMS).
 """
 
 from __future__ import annotations
@@ -29,11 +31,9 @@ from orb_slam_system_tpu_torch.config import ORBConfig
 from orb_slam_system_tpu_torch.ops import fast as fast_ops
 from orb_slam_system_tpu_torch.ops import pyramid as pyr_ops
 from orb_slam_system_tpu_torch.ops.brief import PATCH_RADIUS, brief_pack
-from orb_slam_system_tpu_torch.ops.orientation import (HALF_PATCH,
-                                                        angles_from_moments,
-                                                        ic_angles)
+from orb_slam_system_tpu_torch.ops.orientation import HALF_PATCH, ic_angles
 from orb_slam_system_tpu_torch.ops.patches import (blur_patches,
-                                                   gather_blur_moments,
+                                                   gather_blur_describe,
                                                    gather_patches)
 
 EDGE_MARGIN = 19  # reference EDGE_THRESHOLD (src/ORBextractor.cc:18)
@@ -87,17 +87,15 @@ class ORBExtractor:
         sel, canvas, xy_all = self.detect(img)
         radius = PATCH_RADIUS + 3
         if self.fused_gather:
-            blurred, mom = gather_blur_moments(canvas, xy_all, radius)
-            ang = angles_from_moments(mom)
+            _, ang, desc = gather_blur_describe(canvas, xy_all, radius)
         else:
             raw = gather_patches(canvas, xy_all, radius)
             c0 = radius - HALF_PATCH
             po = 2 * HALF_PATCH + 1
             ang = ic_angles(raw[:, :, c0:c0 + po, c0:c0 + po])
-            blurred = blur_patches(raw)
+            desc = brief_pack(blur_patches(raw), ang)
         return FeatureSet(xy=sel["xy"], response=sel["response"], angle=ang,
-                          octave=sel["octave"], desc=brief_pack(blurred, ang),
-                          valid=sel["valid"])
+                          octave=sel["octave"], desc=desc, valid=sel["valid"])
 
     def detect(self, img: torch.Tensor):
         """Pyramid, FAST + NMS and per-level selection, and the all-level

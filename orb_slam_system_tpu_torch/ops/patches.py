@@ -5,10 +5,14 @@ Port of orb_slam_system_tpu/ops/patches.py plus the extractor's patch blur
   * kernel D (`gather_patches`, csrc/gather_patches.cu; TPU
     gather_patches_pallas) copies each keypoint's raw square patch; its
     plain version is `gather_patches_plain`;
-  * kernel B (`gather_blur_moments`, csrc/gather_blur_moments.cu; TPU
-    gather_blur_moments_pallas) gathers each keypoint's 43x43 patch from
-    the all-level canvas, blurs it to 37x37 and reduces the IC moments in
-    one pass; its plain version is `gather_blur_moments_plain`.
+  * kernel B (csrc/gather_blur_moments.cu; TPU gather_blur_moments_pallas)
+    gathers each keypoint's 43x43 patch from the all-level canvas, blurs
+    it to 37x37 and reduces the IC moments in one pass. It has two modes:
+    `gather_blur_moments` returns the blurred patches and the moments (the
+    TPU kernel's contract; plain version `gather_blur_moments_plain`), and
+    `gather_blur_describe`, the extractor's fused route, goes on to the IC
+    angle and the rBRIEF descriptor without writing the blurred patch
+    (plain version `gather_blur_describe_plain`).
 Each wrapper runs its plain version on a CPU tensor and its kernel on a
 CUDA tensor.
 """
@@ -17,11 +21,11 @@ from __future__ import annotations
 
 import functools
 
-import numpy as np
 import torch
 
+from orb_slam_system_tpu_torch.ops import brief
 from orb_slam_system_tpu_torch.ops.orientation import (HALF_PATCH,
-                                                        moment_weights,
+                                                        angles_from_moments,
                                                         patch_moments)
 from orb_slam_system_tpu_torch.ops.pyramid import gaussian_kernel_1d
 from orb_slam_system_tpu_torch.utils import kernels
@@ -32,14 +36,14 @@ BLUR_TAPS = 7
 def gather_flat_index(xy: torch.Tensor, radius: int, H: int, W: int) -> torch.Tensor:
     """Flat pixel index i64[B, N*P*P] of every patch element: the patch
     start is clipped so the block stays inside the H x W image."""
-    B = xy.shape[0]
+    B, N = xy.shape[:2]
     P = 2 * radius + 1
     x0 = (xy[..., 0].long() - radius).clamp(0, W - P)
     y0 = (xy[..., 1].long() - radius).clamp(0, H - P)
     off = torch.arange(P, device=xy.device)
     rows = (y0[..., None] + off)[..., :, None]            # [B,N,P,1]
     cols = (x0[..., None] + off)[..., None, :]            # [B,N,1,P]
-    return (rows * W + cols).reshape(B, -1)
+    return (rows * W + cols).reshape(B, N * P * P)
 
 
 def gather_patches_plain(img: torch.Tensor, xy: torch.Tensor, radius: int) -> torch.Tensor:
@@ -106,35 +110,71 @@ def gather_blur_moments_plain(canvas: torch.Tensor, xy: torch.Tensor,
     return blur_patches(patches), mom
 
 
+def gather_blur_describe_plain(canvas: torch.Tensor, xy: torch.Tensor,
+                               radius: int = 21):
+    """Plain version of kernel B's describe mode: gather_blur_moments_plain
+    -> angles_from_moments -> brief_pack_plain. Returns (moments f32[B,N,2],
+    angle f32[B,N] radians in [0, 2pi), desc i32[B,N,8])."""
+    blurred, mom = gather_blur_moments_plain(canvas, xy, radius)
+    ang = angles_from_moments(mom)
+    return mom, ang, brief.brief_pack_plain(blurred, ang)
+
+
 @functools.lru_cache(maxsize=None)
-def _constants(device: torch.device):
-    """Kernel B's tables on `device`: blur taps f32[7] and the moment
-    weights f32[2,31,31]."""
-    wx, wy = moment_weights()
-    taps = torch.from_numpy(gaussian_kernel_1d(BLUR_TAPS, 2.0)).to(device)
-    return taps, torch.from_numpy(np.stack([wx, wy])).to(device)
+def _taps_on(device: torch.device) -> torch.Tensor:
+    """Kernel B's blur taps f32[7] on `device`."""
+    return torch.from_numpy(gaussian_kernel_1d(BLUR_TAPS, 2.0)).to(device)
+
+
+def _check_b(canvas: torch.Tensor, xy: torch.Tensor, radius: int, name: str):
+    kernels.check_cuda(canvas, f"{name} canvas", torch.float32, 3)
+    kernels.check_cuda(xy, f"{name} xy", torch.int32, 3)
+    if xy.shape[0] != canvas.shape[0] or xy.shape[2] != 2:
+        raise ValueError(f"xy shape {tuple(xy.shape)} does not match canvas")
+    if radius != 21:
+        raise ValueError("kernel B is built for radius 21 (43x43 patches)")
 
 
 def gather_blur_moments(canvas: torch.Tensor, xy: torch.Tensor,
                         radius: int = 21):
-    """Kernel B on a CUDA canvas, the plain version on a CPU canvas. Same
-    contract as gather_blur_moments_plain; xy is i32[B,N,2] on the card."""
+    """Kernel B's blur mode on a CUDA canvas, the plain version on a CPU
+    canvas. Same contract as gather_blur_moments_plain; xy is i32[B,N,2] on
+    the card."""
     if canvas.is_cpu:
         return gather_blur_moments_plain(canvas, xy, radius)
-    kernels.check_cuda(canvas, "gather_blur_moments canvas", torch.float32, 3)
-    kernels.check_cuda(xy, "gather_blur_moments xy", torch.int32, 3)
+    _check_b(canvas, xy, radius, "gather_blur_moments")
     B, H, W = canvas.shape
-    if xy.shape[0] != B or xy.shape[2] != 2:
-        raise ValueError(f"xy shape {tuple(xy.shape)} does not match canvas")
-    if radius != 21:
-        raise ValueError("kernel B is built for radius 21 (43x43 patches)")
     N = xy.shape[1]
     pb = 2 * radius + 1 - (BLUR_TAPS - 1)
     blurred = torch.empty((B, N, pb, pb), device=canvas.device)
     mom = torch.empty((B, N, 2), device=canvas.device)
-    taps, wxy = _constants(canvas.device)
+    if N == 0:
+        return blurred, mom
     kernels.launch("orb_gather_blur_moments", "gather_blur_moments",
-                   canvas.data_ptr(), xy.data_ptr(), taps.data_ptr(),
-                   wxy.data_ptr(), blurred.data_ptr(), mom.data_ptr(),
-                   B, N, H, W, radius)
+                   canvas.data_ptr(), xy.data_ptr(),
+                   _taps_on(canvas.device).data_ptr(), blurred.data_ptr(),
+                   mom.data_ptr(), B, N, H, W, radius)
     return blurred, mom
+
+
+def gather_blur_describe(canvas: torch.Tensor, xy: torch.Tensor,
+                         radius: int = 21):
+    """Kernel B's describe mode on a CUDA canvas, the plain version on a CPU
+    canvas. Same contract as gather_blur_describe_plain; xy is i32[B,N,2] on
+    the card. One launch from the canvas to (moments, angle, desc)."""
+    if canvas.is_cpu:
+        return gather_blur_describe_plain(canvas, xy, radius)
+    _check_b(canvas, xy, radius, "gather_blur_describe")
+    B, H, W = canvas.shape
+    N = xy.shape[1]
+    dev = canvas.device
+    mom = torch.empty((B, N, 2), device=dev)
+    ang = torch.empty((B, N), device=dev)
+    desc = torch.empty((B, N, 8), dtype=torch.int32, device=dev)
+    if N == 0:
+        return mom, ang, desc
+    kernels.launch("orb_gather_blur_describe", "gather_blur_describe",
+                   canvas.data_ptr(), xy.data_ptr(), _taps_on(dev).data_ptr(),
+                   brief._table_on(dev).data_ptr(), mom.data_ptr(),
+                   ang.data_ptr(), desc.data_ptr(), B, N, H, W, radius)
+    return mom, ang, desc

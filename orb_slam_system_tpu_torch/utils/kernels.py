@@ -27,21 +27,24 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG.parent / "build" / "torch_kernels"
 
-# -fmad=false: no multiply-add contraction anywhere, so the blur in
-# gather_blur_moments rounds exactly like the plain PyTorch version.
+# -fmad=false: no multiply-add contraction anywhere, so arithmetic written
+# as separate products and sums rounds exactly like the plain PyTorch
+# version (kernel B's blur also spells out __fmul_rn/__fadd_rn).
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-fmad=false"]
 
-LAUNCHES = {"fast_score_nms": 0, "gather_blur_moments": 0, "brief_pack": 0,
-            "gather_patches": 0}
+LAUNCHES = {"fast_score_nms": 0, "gather_blur_moments": 0,
+            "gather_blur_describe": 0, "brief_pack": 0, "gather_patches": 0}
 
 _VP = ctypes.c_void_p
 _I = ctypes.c_int
 # C entry points: name -> argtypes (every function returns cudaError_t).
 _SIGNATURES = {
     "orb_fast_score_nms": [_VP, _I, _VP],   # (FastLevels*, B, stream)
-    "orb_gather_blur_moments": [_VP, _VP, _VP, _VP, _VP, _VP,
+    "orb_gather_blur_moments": [_VP, _VP, _VP, _VP, _VP,
                                 _I, _I, _I, _I, _I, _VP],
+    "orb_gather_blur_describe": [_VP, _VP, _VP, _VP, _VP, _VP, _VP,
+                                 _I, _I, _I, _I, _I, _VP],
     "orb_brief_pack": [_VP, _VP, _VP, _VP, _I, _VP],
     "orb_gather_patches": [_VP, _VP, _VP, _I, _I, _I, _I, _I, _VP],
 }

@@ -104,6 +104,53 @@ def test_gather_blur_moments(dev, rng):
     assert float((km - pm).abs().max()) <= 0.5
 
 
+@pytest.mark.parametrize("n", [1024, 2048, 333, 0])
+def test_gather_blur_modes_match_plain(dev, rng, n):
+    """Kernel B's two modes at B = 2 with clipped edge keypoints. Blur mode:
+    bit-exact against gather_blur_moments_plain, moments within 0.5.
+    Describe mode: its moments equal blur mode's bit for bit, its angle is
+    angles_from_moments of them, its descriptors are brief_pack_plain of
+    the plain blur at that angle. N = 0 launches nothing."""
+    from orb_slam_system_tpu_torch.utils import kernels
+    canvas = torch.from_numpy(rng.uniform(0, 255, (2, 300, 200)).astype(np.float32)).to(dev)
+    xy = np.stack([rng.integers(-5, 210, (2, n)), rng.integers(-5, 310, (2, n))],
+                  -1).astype(np.int32)
+    if n:
+        xy[:, :4] = [[0, 0], [199, 299], [-30, 310], [230, 1]]
+    xy = torch.from_numpy(xy).to(dev)
+    kernels.reset_launch_counts()
+    kb, km = patches.gather_blur_moments(canvas, xy, 21)
+    dm, da, dd = patches.gather_blur_describe(canvas, xy, 21)
+    torch.cuda.synchronize()
+    launched = int(n > 0)
+    assert kernels.LAUNCHES["gather_blur_moments"] == launched
+    assert kernels.LAUNCHES["gather_blur_describe"] == launched
+    pb, pm = patches.gather_blur_moments_plain(canvas, xy, 21)
+    assert kb.shape == pb.shape and dd.shape == (2, n, 8)
+    assert torch.equal(kb, pb)
+    assert n == 0 or float((km - pm).abs().max()) <= 0.5
+    assert torch.equal(dm, km)
+    assert torch.equal(da, angles_from_moments(km))
+    assert torch.equal(dd, brief.brief_pack_plain(pb, da))
+
+
+def test_fused_route_launches_describe_once(dev):
+    """ORBExtractor's fused route runs kernel B's describe mode once per
+    call and neither its blur mode nor kernel C."""
+    from orb_slam_system_tpu_torch.config import ORBConfig
+    from orb_slam_system_tpu_torch.ops.extractor import ORBExtractor
+    from orb_slam_system_tpu_torch.utils import kernels
+    img = _rendered_pyramid(dev)[0]
+    ex = ORBExtractor(ORBConfig(n_features=1000), 480, 640)
+    ex(img)
+    kernels.reset_launch_counts()
+    ex(img)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES == {"fast_score_nms": 1, "gather_blur_moments": 0,
+                                "gather_blur_describe": 1, "brief_pack": 0,
+                                "gather_patches": 0}
+
+
 def test_brief_pack_bit_exact(dev, rng):
     blurred = torch.from_numpy(rng.uniform(0, 255, (1, 777, 37, 37)).astype(np.float32)).to(dev)
     ang = angles_from_moments(torch.from_numpy(

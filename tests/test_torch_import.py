@@ -38,6 +38,9 @@ b2, m2 = patches.gather_blur_moments_plain(img, xy, 21)
 assert torch.equal(b1, b2) and torch.equal(m1, m2)
 assert torch.equal(patches.gather_patches(img, xy, 21),
                    patches.gather_patches_plain(img, xy, 21))
+m3, a3, d3 = patches.gather_blur_describe(img, xy, 21)
+m4, a4, d4 = patches.gather_blur_describe_plain(img, xy, 21)
+assert torch.equal(m3, m4) and torch.equal(a3, a4) and torch.equal(d3, d4)
 ang = torch.from_numpy(rng.uniform(0, 6.28, (1, 16)).astype(np.float32))
 assert torch.equal(brief.brief_pack(b1, ang), brief.brief_pack_plain(b1, ang))
 assert kernels._lib is None, "the kernel library was loaded"
