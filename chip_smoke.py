@@ -34,9 +34,24 @@ Phases, each of which fails the run (exit code != 0) when it fails:
      per-stage times, a profiler count of one keyframe insertion and one
      local BA, and check the reference's bars (state OK, >= 3 keyframes,
      > 150 map points, ATE < 3 cm) plus >= 90% of the frames after
-     initialization tracked, and that every kernel of the path launched
+     initialization tracked, that every kernel of the path launched
      (kernel A and kernel B's describe mode once per frame build, kernel C
-     never).
+     never), and that place recognition became ready (the vocabulary
+     self-trained) with every live keyframe's BoW and nodes in the keyframe
+     database;
+  6. relocalization at full width on phase 5's System: with the state
+     forced to LOST, a mid-orbit view must come back OK with its camera
+     centre within 1 cm of the pose the System tracked for that frame; a
+     view shifted 5 m off the orbit must stay LOST; with six decoy ids ahead
+     of the real candidates it must still relocalize; each frame build
+     launches kernels A and B (describe mode) once. Print each
+     relocalization's wall ms, the device kernels and ms of one
+     relocalization (profiler), the device ms of one epnp_ransac_batch at
+     the run's candidate count (and its result on the card against the
+     CPU), and the vocabulary descent of 1000 descriptors on the card
+     against the numpy descent on the host, on the self-trained tree and on
+     a k=10, L=6 tree (ORBvoc's shape, 1,111,111 nodes) made from a seed,
+     bit-equal on the card.
 The second-to-last line is a JSON object with each kernel's launches, error,
 times and bound; the last line is {"ok": true, "device": {...}}. Without
 CUDA, or without the package beside it, the script exits non-zero and prints
@@ -64,12 +79,14 @@ MAX_ROT_ERR_DEG = 0.25
 MAX_ANGLE_BIN_FLIPS = 0.01  # share of keypoints, card vs CPU extraction
 N_UNFUSED_FRAMES = 10
 SYSTEM_FRAMES = 60
+MAX_RELOC_ERR_M = 0.01      # relocalized camera centre vs the tracked one
 MIN_TRACKED_SHARE = 0.9     # of the System's frames after initialization
 MAX_ATE_M = 0.03            # tests/test_e2e_mono.py bar
 # H100 SXM peaks (NVIDIA data sheet, dense): device memory bytes/s and
 # float32 operations/s outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+SPIN_LEAD = 32              # spin kernels that open each profiler window
 
 
 def bound_ms(n_bytes: float, n_ops: float):
@@ -97,25 +114,42 @@ def cuda_ms(torch, fn, reps: int = 20) -> float:
     return start.elapsed_time(end) / reps
 
 
+def _device_events(prof, kernel=None):
+    """The profile's device kernels whose name contains `kernel` (None:
+    all), without the spin kernel that opens each window."""
+    return [e for e in prof.key_averages()
+            if str(e.device_type).endswith("CUDA") and "spin_kernel" not in e.key
+            and (kernel is None or kernel in e.key)]
+
+
+def _open_window(torch):
+    """Open a profiler window with SPIN_LEAD short spin kernels and wait for
+    them. Late in this script's process (after the System's profiles) the
+    profiler has dropped the first 5-8 kernel records of every window; the
+    spin kernels take that loss instead of the measured calls."""
+    for _ in range(SPIN_LEAD):
+        torch.cuda._sleep(20000)
+    torch.cuda.synchronize()
+
+
 def device_ms(torch, fn, kernel, reps: int = 20, launches: int = 1) -> float:
     """Device ms per launch of the kernel whose name contains `kernel`
     (None: any kernel fn launches), from torch.profiler over `reps` calls of
     fn after a warm-up; fn launches it `launches` times per call. The
     profiler has been seen to drop kernel records on the H100 machine, so a
     window that does not hold all reps * launches records is profiled
-    again, up to 3 windows; the run fails if none holds them all."""
+    again, up to 5 windows; the run fails if none holds them all."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
     want = reps * launches
-    for window in range(1, 4):
+    for window in range(1, 6):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            _open_window(torch)
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        evs = [e for e in prof.key_averages()
-               if str(e.device_type).endswith("CUDA")
-               and (kernel is None or kernel in e.key)]
+        evs = _device_events(prof, kernel)
         n = sum(e.count for e in evs)
         if n == want:
             return sum(e.self_device_time_total for e in evs) / 1e3 / n
@@ -124,24 +158,61 @@ def device_ms(torch, fn, kernel, reps: int = 20, launches: int = 1) -> float:
     fail(f"the profiler never showed all {want} launches of kernel {kernel!r}")
 
 
+def _stage_window(torch, fn, reps: int):
+    """({kernel name: records}, summed device us, spin records) of one
+    profiler window of `reps` calls of fn."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _open_window(torch)
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    counts: dict = {}
+    t_us = 0.0
+    for e in _device_events(prof):
+        counts[e.key] = counts.get(e.key, 0) + e.count
+        t_us += e.self_device_time_total
+    spins = sum(e.count for e in prof.key_averages()
+                if str(e.device_type).endswith("CUDA") and "spin_kernel" in e.key)
+    return counts, t_us, spins
+
+
 def stage_device_ms(torch, fn, reps: int = 20):
     """(device ms per call of fn summed over every kernel it launches, the
-    number of kernels per call). The count comes from profiling single
-    calls (the most of 3, as the profiler can drop records), the time from
-    device_ms over all of fn's kernels."""
-    from torch.profiler import ProfilerActivity, profile
+    kernels per call). One call's kernels, by name, come from single-call
+    windows, two of which must agree; the time from a window of `reps`
+    calls that holds exactly `reps` times those records. The profiler can
+    drop records, so each kind of window is profiled again, up to 5; the
+    run fails if none qualifies."""
     fn()
     torch.cuda.synchronize()
-    n = 0
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        n = max(n, sum(e.count for e in prof.key_averages()
-                       if str(e.device_type).endswith("CUDA")))
-    if n == 0:
-        fail("the profiler saw no device kernel of the stage")
-    return n * device_ms(torch, fn, None, reps, n), n
+    seen = []
+    for _ in range(5):
+        one = _stage_window(torch, fn, 1)[0]
+        if one and one in seen:
+            break
+        seen.append(one)
+    else:
+        fail(f"no two single-call profiler windows of the stage agree: "
+             f"{[sum(c.values()) for c in seen]} records")
+    want = {k: reps * v for k, v in one.items()}
+    for window in range(1, 6):
+        counts, t_us, spins = _stage_window(torch, fn, reps)
+        if counts == want:
+            if spins != SPIN_LEAD:
+                print(f"the profiler dropped {SPIN_LEAD - spins} of the "
+                      f"{SPIN_LEAD} spin records that opened the window",
+                      flush=True)
+            return t_us / 1e3 / reps, sum(one.values())
+        off = {k: (counts.get(k, 0), want.get(k, 0))
+               for k in set(counts) | set(want)
+               if counts.get(k, 0) != want.get(k, 0)}
+        print(f"profiler window {window} of {reps} calls: "
+              f"{sum(counts.values())} records, not {sum(want.values())}, "
+              f"{spins} of {SPIN_LEAD} spin records; (records, wanted) of "
+              f"the kernels off: {off}", flush=True)
+    fail(f"the profiler never showed {reps} times the {sum(one.values())} "
+         f"kernels of one call of the stage")
 
 
 def pose_error(T, T_gt):
@@ -166,6 +237,7 @@ def profile_device(torch, label: str, fn, wall_ms) -> None:
         prof.start()
     except Exception as e:  # noqa: BLE001 - the profiler's own failure
         prof, why = None, e
+    _open_window(torch)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     fn()
@@ -175,8 +247,7 @@ def profile_device(torch, label: str, fn, wall_ms) -> None:
     if prof is not None:
         try:
             prof.stop()
-            evs = [e for e in prof.key_averages()
-                   if str(e.device_type).endswith("CUDA")]
+            evs = _device_events(prof)
         except Exception as e:  # noqa: BLE001 - the profiler's own failure
             prof, why = None, e
     if prof is None:
@@ -189,6 +260,178 @@ def profile_device(torch, label: str, fn, wall_ms) -> None:
           f"{1.0 - dev_ms / wall_ms:.3f}", flush=True)
 
 
+def orbvoc_shaped_tree(Vocabulary, k: int = 10, L: int = 6, seed: int = 0):
+    """A complete k-ary tree of depth L (ORBvoc.txt's shape: 1,111,111 nodes
+    at k=10, L=6) in breadth-first numbering, with random descriptors and
+    leaf weights from a seed; no text file."""
+    rng = np.random.default_rng(seed)
+    n = (k ** (L + 1) - 1) // (k - 1)
+    ids = np.arange(n, dtype=np.int64)
+    children = k * ids[:, None] + np.arange(1, k + 1)
+    children[children >= n] = -1
+    parent = (ids - 1) // k
+    parent[0] = -1
+    is_leaf = children[:, 0] < 0
+    word_of_node = np.full(n, -1, np.int32)
+    word_of_node[is_leaf] = np.arange(int(is_leaf.sum()), dtype=np.int32)
+    weight = np.where(is_leaf, rng.uniform(0.1, 5.0, n), 0.0).astype(np.float32)
+    desc = rng.integers(0, 2 ** 32, size=(n, 8), dtype=np.uint32)
+    return Vocabulary(k, L, desc, parent.astype(np.int32),
+                      children.astype(np.int32), is_leaf, weight, word_of_node)
+
+
+def relocalization_phase(torch, slam, kernels, pnp, unpack, Vocabulary,
+                         traj_io, mono_synthetic, TrackingState, card) -> dict:
+    """Phase 6 (see the module docstring); returns its numbers."""
+    W, H = slam.cfg.camera.width, slam.cfg.camera.height
+    cfg = mono_synthetic.make_config(W, H, slam.cfg.orb.n_features)
+    renderer = mono_synthetic.make_renderer(cfg)
+    poses = mono_synthetic.orbit_trajectory(SYSTEM_FRAMES, radius=0.35,
+                                            depth=-2.0, tilt=0.3)
+    tr = slam.tracker
+    # The tracked pose of each frame, and metres per map unit from the
+    # Sim3 alignment of the tracked camera centres to the true ones.
+    fp = [(int(round(ts * 30.0)), T) for ts, T, lost in
+          traj_io.frame_poses(slam.arena, tr.trajectory) if not lost]
+    P = np.stack([-T[:3, :3].T @ T[:3, 3] for _, T in fp])
+    Q = np.stack([-poses[i][:3, :3].T @ poses[i][:3, 3] for i, _ in fp])
+    Pa = traj_io.umeyama_align(P, Q)
+    m_per_unit = float(np.sqrt(((Pa - Pa.mean(0)) ** 2).sum()
+                               / ((P - P.mean(0)) ** 2).sum()))
+    mid, T_tracked = min(fp, key=lambda e: abs(e[0] - SYSTEM_FRAMES // 2))
+    img_mid = renderer.render(poses[mid])
+    T_far = poses[0].copy()
+    T_far[:3, 3] += np.array([5.0, 5.0, 0.0])
+    img_far = renderer.render(T_far)
+
+    def lost_then(img, ts):
+        tr.state = TrackingState.LOST
+        tr.velocity = None
+        return slam.track_monocular(img, ts)
+
+    # The main path of this phase: three relocalization attempts, the
+    # counters read around them. The PnP call's inputs are kept to time it.
+    captured = []
+    orig_pnp = pnp.epnp_ransac_batch
+
+    def spy(*a, **kw):
+        captured.append((a, kw))
+        return orig_pnp(*a, **kw)
+
+    db = slam.place_rec.db
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    pnp.epnp_ransac_batch = spy
+    try:
+        Tcw = lost_then(img_mid, 1000.0)
+        state_mid = slam.get_tracking_state()
+        lost_then(img_far, 1001.0)
+        state_far = slam.get_tracking_state()
+        far_stats = dict(tr.reloc_stats)
+        decoys = [99991, 99992, 99993, 99994, 99995, 99996]
+        orig_detect = db.detect_reloc_candidates
+        db.detect_reloc_candidates = lambda bow, arena: (
+            decoys + orig_detect(bow, arena)[::-1])
+        try:
+            T_decoy = lost_then(img_mid, 1002.0)
+            state_decoy = slam.get_tracking_state()
+        finally:
+            del db.detect_reloc_candidates
+    finally:
+        pnp.epnp_ransac_batch = orig_pnp
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    reloc_ms = list(tr.stage_ms.history["relocalization"])[-3:]
+    centre = lambda T: -T[:3, :3].T @ T[:3, 3]
+    err_units = float(np.linalg.norm(centre(Tcw) - centre(T_tracked)))
+    err_decoy = float(np.linalg.norm(centre(T_decoy) - centre(T_tracked)))
+    print(f"relocalization of frame {mid}'s view: {state_mid.name}, camera "
+          f"centre {err_units:.5f} map units = {100 * err_units * m_per_unit:.3f}"
+          f" cm from the tracked pose ({m_per_unit:.4f} m per unit); view "
+          f"5 m off the orbit: {state_far.name}; decoys first: "
+          f"{state_decoy.name} ({100 * err_decoy * m_per_unit:.3f} cm); "
+          f"reloc_stats {far_stats} then {dict(tr.reloc_stats)}; wall ms per "
+          f"relocalization (host clock) {[round(x, 3) for x in reloc_ms]}; "
+          f"launches {launches}; {card}", flush=True)
+    if state_mid != TrackingState.OK or state_decoy != TrackingState.OK:
+        fail("the mid-orbit view did not relocalize")
+    if err_units * m_per_unit >= MAX_RELOC_ERR_M or \
+            err_decoy * m_per_unit >= MAX_RELOC_ERR_M:
+        fail(f"relocalized {100 * err_units * m_per_unit:.3f} / "
+             f"{100 * err_decoy * m_per_unit:.3f} cm from the tracked pose "
+             f"(>= {100 * MAX_RELOC_ERR_M:g} cm)")
+    if state_far != TrackingState.LOST:
+        fail("the view 5 m off the orbit relocalized")
+    for name, want in (("fast_score_nms", 3), ("gather_blur_describe", 3),
+                       ("brief_pack", 0)):
+        if launches[name] != want:
+            fail(f"kernel {name} launched {launches[name]} times in phase 6's "
+                 f"3 frame builds, not {want}")
+    if not captured:
+        fail("no EPnP-RANSAC call in phase 6")
+
+    # One relocalization under the profiler, on a fresh build of the view.
+    tr.current = tr.builder.build(img_mid, 1003.0)
+    profile_device(torch, "one relocalization (tracker.relocalization)",
+                   tr.relocalization, None)
+
+    # One epnp_ransac_batch at the run's candidate count, on the card and
+    # against the same call on the CPU.
+    a, kw = captured[0]
+    n_cand = int(a[0].shape[0])
+    run_pnp = lambda: orig_pnp(*a, **kw)
+    pnp_ms = cuda_ms(torch, run_pnp)
+    pnp_dev, pnp_kernels = stage_device_ms(torch, run_pnp)
+    ok_g, T_g, inl_g, _ = (x.cpu() for x in run_pnp())
+    cpu_args = [x.cpu() if torch.is_tensor(x) else x for x in a]
+    ok_c, T_c, inl_c, _ = orig_pnp(*cpu_args, **kw)
+    n_slots = inl_g.shape[1]
+    inl_diff = int((inl_g != inl_c).sum(1).max())
+    t_diff = float((T_g[:, :3, 3] - T_c[:, :3, 3]).abs().max())
+    print(f"epnp_ransac_batch at {n_cand} candidates x 300 sets x {n_slots} "
+          f"slots: device {pnp_dev:.4f} ms in {pnp_kernels} kernels, call "
+          f"{pnp_ms:.3f} ms; card vs CPU: ok {ok_g.tolist()} / {ok_c.tolist()},"
+          f" inlier masks differ in at most {inl_diff} slots, translation by "
+          f"{t_diff:.2e}; {card}", flush=True)
+    if not torch.equal(ok_g, ok_c) or inl_diff > 0.01 * n_slots:
+        fail("epnp_ransac_batch on the card disagrees with the CPU")
+
+    # The vocabulary descent: card (torch) against host (numpy), bit-equal.
+    _, _, _, valid, desc, _ = unpack(tr.current.packed)
+    desc, valid = desc[:1000].contiguous(), valid[:1000].contiguous()
+    desc_np = desc.cpu().numpy().view(np.uint32)
+    valid_np = valid.cpu().numpy()
+    descent = {}
+    for label, voc in (("self_trained", slam.place_rec.vocab),
+                       ("k10_L6", orbvoc_shaped_tree(Vocabulary))):
+        got = [x.cpu().numpy() for x in voc.transform_device(desc, valid)]
+        want = voc.transform(desc_np, valid_np)
+        if not all(np.array_equal(g.view(np.int32), w.view(np.int32))
+                   for g, w in zip(got, want)):
+            fail(f"the descent on the card differs from numpy ({label})")
+        run_d = lambda: voc.transform_device(desc, valid)
+        d_call = cuda_ms(torch, run_d)
+        d_dev, d_kernels = stage_device_ms(torch, run_d)
+        t0 = time.perf_counter()
+        for _ in range(20):
+            voc.transform(desc_np, valid_np)
+        host_ms = 1e3 * (time.perf_counter() - t0) / 20
+        descent[label] = dict(nodes=len(voc.node_parent), device_ms=d_dev,
+                              kernels=d_kernels, call_ms=d_call,
+                              numpy_host_ms=host_ms)
+        print(f"vocabulary descent of 1000 descriptors, {label} tree "
+              f"({len(voc.node_parent)} nodes, L={voc.L}): bit-equal on the "
+              f"card; device {d_dev:.4f} ms in {d_kernels} kernels, call "
+              f"{d_call:.3f} ms; numpy on the host {host_ms:.3f} ms; {card}",
+              flush=True)
+    return dict(frame=mid, err_cm=100 * err_units * m_per_unit,
+                err_decoy_cm=100 * err_decoy * m_per_unit,
+                reloc_wall_ms=reloc_ms, launches=launches,
+                reloc_stats=dict(tr.reloc_stats), pnp_candidates=n_cand,
+                pnp_device_ms=pnp_dev, pnp_kernels=pnp_kernels,
+                pnp_call_ms=pnp_ms, descent=descent)
+
+
 def main() -> None:
     try:
         import torch
@@ -199,18 +442,22 @@ def main() -> None:
     try:
         from orb_slam_system_tpu_torch.config import (CameraConfig, ORBConfig,
                                                       SlamConfig, TrackingState)
+        from orb_slam_system_tpu_torch.dataio import trajectory as traj_io
         from orb_slam_system_tpu_torch.drivers import mono_synthetic
         from orb_slam_system_tpu_torch.dataio.synthetic import (
             PlanarSceneRenderer, make_texture, orbit_trajectory)
         from orb_slam_system_tpu_torch.models.frame import FrameBuilder
-        from orb_slam_system_tpu_torch.models.track_device import TrackPrograms
+        from orb_slam_system_tpu_torch.models.track_device import (
+            TrackPrograms, unpack)
         from orb_slam_system_tpu_torch.models.tracking import (
             LOCAL_MAP_SLOTS, fused_track_step, seed_map_from_depth)
         from orb_slam_system_tpu_torch.ops import brief, fast, patches
         from orb_slam_system_tpu_torch.ops.brief import _angle_bins
         from orb_slam_system_tpu_torch.ops.orientation import angles_from_moments
         from orb_slam_system_tpu_torch.ops.pyramid import build_pyramid
+        from orb_slam_system_tpu_torch.solvers import pnp
         from orb_slam_system_tpu_torch.utils import kernels
+        from orb_slam_system_tpu_torch.vocab.vocabulary import Vocabulary
     except ImportError as e:
         fail(f"the port does not import (run from the repository root): {e}")
     if "jax" in sys.modules:
@@ -642,6 +889,20 @@ def main() -> None:
         if system_launches[name] != want:
             fail(f"kernel {name} launched {system_launches[name]} times for "
                  f"{len(recs)} frame builds in the system run, not {want}")
+    pr = slam.place_rec
+    if not pr.ready:
+        fail("place recognition never became ready in the system run")
+    unindexed = [k for k, kf in slam.arena.kfs.items()
+                 if kf.bow is None or kf.node_ids is None or k not in pr.db.bows]
+    if unindexed:
+        fail(f"keyframes without BoW or database entry: {unindexed}")
+    print(f"place recognition: self-trained vocabulary of {pr.vocab.n_words} "
+          f"words (k={pr.vocab.k}, L={pr.vocab.L}), all "
+          f"{slam.arena.n_keyframes()} live keyframes indexed", flush=True)
+
+    reloc = relocalization_phase(torch, slam, kernels, pnp, unpack,
+                                 Vocabulary, traj_io, mono_synthetic,
+                                 TrackingState, card)
 
     # Launches of each kernel on the path that runs it: the System for A and
     # B (its describe mode), the extractor's unfused route for C and D.
@@ -650,6 +911,7 @@ def main() -> None:
         gather_blur_moments=system_launches["gather_blur_describe"],
         brief_pack=unfused_launches["brief_pack"],
         gather_patches=unfused_launches["gather_patches"])
+    print(json.dumps({"relocalization": reloc}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": r["source"],

@@ -7,9 +7,11 @@ on the ported path is a hand-written CUDA kernel for Hopper (sm_90a) under
 csrc/, built at first use by utils/kernels.py; each kernel's plain PyTorch
 version lives beside its wrapper and serves CPU tensors.
 
-Ported so far: the monocular front end (FrameBuilder.build) and the fused
-steady-state tracking step (TrackPrograms.fused_step, with the host step
-models.tracking.fused_track_step around it).
+Ported so far: the monocular System (models/system.py): the front end
+(FrameBuilder.build), two-view initialization, the fused steady-state
+tracking step with its fallbacks, synchronous local mapping, and place
+recognition with relocalization (vocab/, mapping/keyframe_db.py,
+models/place_recognition.py, solvers/pnp.py).
 """
 
 __version__ = "0.1.0"

@@ -36,13 +36,17 @@ def make_config(width=320, height=240, n_features=500) -> SlamConfig:
                       sensor=Sensor.MONOCULAR)
 
 
+def make_renderer(cfg: SlamConfig) -> PlanarSceneRenderer:
+    """The textured plane, seen through cfg's camera."""
+    cam = cfg.camera
+    return PlanarSceneRenderer(cam.K, cam.width, cam.height,
+                               texture=make_texture(size=2048, block=8, seed=7),
+                               tex_scale=220.0 * cam.width / 320)
+
+
 def render_sequence(cfg: SlamConfig, n_frames: int):
     """(frames f32[H,W] list, true Tcw list) of the orbit."""
-    cam = cfg.camera
-    renderer = PlanarSceneRenderer(cam.K, cam.width, cam.height,
-                                   texture=make_texture(size=2048, block=8,
-                                                        seed=7),
-                                   tex_scale=220.0 * cam.width / 320)
+    renderer = make_renderer(cfg)
     poses = orbit_trajectory(n_frames, radius=0.35, depth=-2.0, tilt=0.3)
     return [renderer.render(T) for T in poses], poses
 

@@ -11,9 +11,10 @@ BA and one keyframe-culling pass on the newest keyframe of the batch.
 
 Triangulation + fusion run as two chained device steps with one packed
 fetch (ops/mapper_fused.py), local BA as one packed fetch
-(solvers/local_ba.py); the arena bookkeeping stays on the host. Not in
-this port: the async worker thread, place recognition indexing and the
-hand-off to loop closing.
+(solvers/local_ba.py); the arena bookkeeping stays on the host. Each
+processed keyframe is indexed for place recognition (BoW, keyframe
+database) when a PlaceRecognition service is given. Not in this port: the
+async worker thread and the hand-off to loop closing.
 """
 
 from __future__ import annotations
@@ -54,10 +55,12 @@ def _pad_slots(a: np.ndarray, n: int, fill=0) -> np.ndarray:
 
 
 class LocalMapper:
-    def __init__(self, cfg: SlamConfig, arena: MapArena, device="cuda"):
+    def __init__(self, cfg: SlamConfig, arena: MapArena, device="cuda",
+                 place_rec=None):
         set_f32_policy()
         self.cfg = cfg
         self.arena = arena
+        self.place_rec = place_rec
         self.device = torch.device(device)
         self.queue: deque[int] = deque()
         self.recent_points: list[tuple[int, int]] = []  # (mp_id, birth_kf_id)
@@ -115,7 +118,8 @@ class LocalMapper:
 
     def process_new_keyframe(self, kf: KeyFrameRec):
         """Reference ProcessNewKeyFrame: bind tracked map points, refresh
-        their statistics in one batched arena pass, update covisibility."""
+        their statistics in one batched arena pass, update covisibility,
+        index the keyframe for place recognition."""
         fresh = []
         for idx, mid in enumerate(kf.mp_ids):
             if mid < 0:
@@ -131,6 +135,10 @@ class LocalMapper:
             self.arena.compute_distinctive_many(fresh)
             self.arena.update_normals_many(fresh, self.scale_factors)
         self.arena.update_connections(kf)
+        # BoW + keyframe-database indexing (reference ComputeBoW and
+        # KeyFrameDatabase::add).
+        if self.place_rec is not None:
+            self.place_rec.on_new_keyframe(kf, self.arena)
 
     def cull_map_points(self, kf: KeyFrameRec):
         """Reference MapPointCulling."""

@@ -3,18 +3,22 @@
 Port of orb_slam_system_tpu/models/system.py (reference System), monocular
 with synchronous mapping (the JAX System's default async_mapping=False):
 track_monocular tracks the frame, then drains the local mapper inline, so
-results are the same every run. Trajectory export in the reference's TUM,
-keyframe-TUM and KITTI formats.
+results are the same every run. Place recognition (vocabulary + keyframe
+database) serves relocalization and the reference-keyframe search: the
+vocabulary is loaded from `vocabulary_path` (the reference's ORBvoc text
+format) or, without one, self-trained from the map's keyframes once there
+are five, as the JAX System does. Trajectory export in the reference's
+TUM, keyframe-TUM and KITTI formats.
 
-Not in this port yet: stereo and RGB-D tracking, localization mode, place
-recognition and loop closing, the async mapper, the streaming and
-pipelined modes, the viewer, map save/load.
+Not in this port yet: stereo and RGB-D tracking, localization mode, loop
+closing, the async mapper, the streaming and pipelined modes, the viewer,
+map save/load.
 """
 
 from __future__ import annotations
 
 import time
-from typing import Union
+from typing import Optional, Union
 
 import numpy as np
 import torch
@@ -24,14 +28,17 @@ from orb_slam_system_tpu_torch.config import (Sensor, SlamConfig,
 from orb_slam_system_tpu_torch.dataio import trajectory as traj_io
 from orb_slam_system_tpu_torch.mapping.arena import MapArena
 from orb_slam_system_tpu_torch.models.local_mapping import LocalMapper
+from orb_slam_system_tpu_torch.models.place_recognition import PlaceRecognition
 from orb_slam_system_tpu_torch.models.tracking import Tracker
 from orb_slam_system_tpu_torch.utils.metrics import Telemetry
 from orb_slam_system_tpu_torch.utils.precision import set_f32_policy
+from orb_slam_system_tpu_torch.vocab.vocabulary import Vocabulary
 
 
 class System:
     def __init__(self, settings: Union[str, SlamConfig],
-                 sensor: Sensor = Sensor.MONOCULAR, device="cuda"):
+                 sensor: Sensor = Sensor.MONOCULAR, device="cuda",
+                 vocabulary_path: Optional[str] = None):
         set_f32_policy()
         self.sensor = Sensor(sensor)
         if self.sensor != Sensor.MONOCULAR:
@@ -39,9 +46,15 @@ class System:
         self.cfg = (load_settings(settings, self.sensor)
                     if isinstance(settings, str) else settings)
         self.device = torch.device(device)
+        self.vocabulary = (Vocabulary.load(vocabulary_path)
+                           if vocabulary_path else None)
         self.arena = MapArena()
-        self.local_mapper = LocalMapper(self.cfg, self.arena, device)
-        self.tracker = Tracker(self.cfg, self.arena, self.local_mapper, device)
+        self.place_rec = PlaceRecognition(self.vocabulary, device=device)
+        self.arena.erase_hooks.append(self.place_rec.on_erase_keyframe)
+        self.local_mapper = LocalMapper(self.cfg, self.arena, device,
+                                        place_rec=self.place_rec)
+        self.tracker = Tracker(self.cfg, self.arena, self.local_mapper, device,
+                               place_rec=self.place_rec)
         self._timings: list[float] = []
         # Per-frame records: state, tracked points, map size, track_ms,
         # mapping_ms (host clock; both end in a device fetch).

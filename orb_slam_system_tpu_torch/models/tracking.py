@@ -5,15 +5,22 @@ monocular, with the synchronous local mapper: grayscale frames in, camera
 poses out. Tracker drives two-view initialization (the mixin in
 models/tracking_init.py, with the keyframe policy), the fused steady-state
 step with its fallbacks (motion model, then the reference keyframe, then
-the local map), keyframe creation, reset and the trajectory log.
+the local map), relocalization of a LOST frame, keyframe creation, reset
+and the trajectory log.
 
-Not in this port yet, and simply not called: relocalization (a LOST frame
-stays LOST; the JAX tracker's relocalization returns False the same way
-while place recognition is not ready), place recognition, the pipelined
-chain mode, localization mode, stereo and RGB-D. With mapping synchronous
-and no loop closer, no map-wide pose rewrite can land inside a frame, so
-the JAX package's correction lock and pose-epoch invariant have nothing to
-guard here.
+Relocalization (reference Tracking::Relocalization) takes the BoW
+candidates from the place-recognition service's keyframe database, matches
+all of them against the frame in ONE node-constrained search, solves all
+the viable ones in ONE batched EPnP-RANSAC (solvers/pnp.py), then tries
+them in candidate order: pose LM, projection top-up, pose LM with the
+50-inlier gate. The reference-keyframe search uses the frame's and the
+keyframe's real vocabulary nodes once place recognition is ready.
+
+Not in this port yet: the pipelined chain mode, localization mode (and
+with it the JAX tracker's temporary VO points), stereo and RGB-D. With
+mapping synchronous and no loop closer, no map-wide pose rewrite can land
+inside a frame, so the JAX package's correction lock and pose-epoch
+invariant have nothing to guard here.
 
 Two plain functions from the first slice stay beside the Tracker:
 
@@ -36,6 +43,7 @@ TrackPrograms as well as this port's.
 from __future__ import annotations
 
 import dataclasses
+from collections import Counter
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -48,6 +56,7 @@ from orb_slam_system_tpu_torch.models.frame import Frame, FrameBuilder
 from orb_slam_system_tpu_torch.models.track_device import TrackPrograms, unpack
 from orb_slam_system_tpu_torch.models.tracking_init import MonoInitAndKeyframes
 from orb_slam_system_tpu_torch.ops import matching
+from orb_slam_system_tpu_torch.solvers import pnp
 from orb_slam_system_tpu_torch.solvers.initializer import make_ransac_sets
 from orb_slam_system_tpu_torch.utils.interop import to_device
 from orb_slam_system_tpu_torch.utils.metrics import StageTimer
@@ -55,6 +64,7 @@ from orb_slam_system_tpu_torch.utils.precision import set_f32_policy
 
 LOCAL_MAP_SLOTS = 4096     # padded local-map point budget for device calls
 MAX_LOCAL_KEYFRAMES = 80   # reference src/Tracking.cc:759-761
+RELOC_TOPUP_RADIUS = 10.0  # relocalization's projection search (:863)
 
 
 class LocalMap(NamedTuple):
@@ -206,11 +216,12 @@ class Tracker(MonoInitAndKeyframes):
     caller asks for it)."""
 
     def __init__(self, cfg: SlamConfig, arena: MapArena, local_mapper,
-                 device="cuda"):
+                 device="cuda", place_rec=None):
         set_f32_policy()
         self.cfg = cfg
         self.arena = arena
         self.local_mapper = local_mapper
+        self.place_rec = place_rec
         self.device = torch.device(device)
         self.state = TrackingState.NO_IMAGES_YET
         self.builder = FrameBuilder(cfg, device)
@@ -241,6 +252,10 @@ class Tracker(MonoInitAndKeyframes):
         self._local_block_cache = None
         # Wall time per stage of the steady-state path.
         self.stage_ms = StageTimer()
+        self.frames_since_reloc = 10 ** 9
+        # Relocalization funnel: attempts, no_candidates, no_viable_pnp,
+        # all_candidates_failed, ok.
+        self.reloc_stats = Counter()
 
     def _tensor(self, a) -> torch.Tensor:
         return to_device(a, self.device)
@@ -283,8 +298,11 @@ class Tracker(MonoInitAndKeyframes):
                     ok = self.track_with_motion_model()
                 if not ok:
                     ok = self.track_reference_keyframe()
-        # A LOST frame would relocalize here; relocalization is not ported,
-        # so the frame stays LOST.
+        else:
+            with self.stage_ms.stage("relocalization"):
+                ok = self.relocalization()
+            if ok:
+                self.frames_since_reloc = 0
         if ok and not fused_done:
             ok = self.track_local_map()
         self.state = TrackingState.OK if ok else TrackingState.LOST
@@ -301,6 +319,7 @@ class Tracker(MonoInitAndKeyframes):
             if need_kf:
                 with self.stage_ms.stage("kf_create"):
                     self.create_new_keyframe()
+            self.frames_since_reloc += 1
         elif self.arena.n_keyframes() <= 5:
             # Lost soon after initialization -> full reset (reference
             # :229-233, Tracking::Reset :887-927).
@@ -396,21 +415,32 @@ class Tracker(MonoInitAndKeyframes):
         return n_in >= 10
 
     def track_reference_keyframe(self) -> bool:
-        """Reference TrackReferenceKeyFrame (:442-473) with real matching;
-        without place recognition every node id is 0, so the node-
-        constrained search is a global ratio-test match."""
+        """Reference TrackReferenceKeyFrame (:442-473) with real matching:
+        the keyframe's and the frame's direct-index vocabulary nodes
+        (SearchByBoW walks the two FeatureVectors in lock-step) once place
+        recognition is ready; before that every node id is 0, and the
+        node-constrained search is a global ratio-test match. Both sides
+        carry real nodes or neither does (the JAX package's round-5 fix:
+        real keyframe nodes against all-zero frame nodes matched almost
+        nothing)."""
         cur = self.current
         kf = self.arena.kfs.get(self.ref_kf_id)
         if kf is None:
             return False
         has_mp = kf.mp_ids >= 0
-        node_kf = np.where(has_mp, 0, -1)
         _, c_ang, _, c_valid, c_desc, _ = unpack(cur.packed)
+        if (kf.node_ids is not None and self.place_rec is not None
+                and self.place_rec.ready):
+            node_kf = np.where(has_mp, kf.node_ids, -1)
+            node_cur = self.place_rec.vocab.transform_device(c_desc, c_valid)[2]
+        else:
+            node_kf = np.where(has_mp, 0, -1)
+            node_cur = torch.zeros(cur.n_slots, dtype=torch.int32,
+                                   device=self.device)
         res = matching.search_by_node_id(
             self._tensor(kf.feats.desc), self._tensor(kf.feats.valid & has_mp),
             self._tensor(kf.feats.angle), self._tensor(node_kf),
-            c_desc, c_valid, c_ang,
-            torch.zeros(cur.n_slots, dtype=torch.int64, device=self.device))
+            c_desc, c_valid, c_ang, node_cur.to(torch.int64))
         idx2 = res.idx2.cpu().numpy()
         rows = np.nonzero(idx2 >= 0)[0]
         if len(rows) < 15:
@@ -568,8 +598,10 @@ class Tracker(MonoInitAndKeyframes):
         cur.mp_ids[out] = -1
         self.n_inliers = n_in
         self._count_found(cur)
-        # Acceptance gate (reference :570-575; the stricter one right after
-        # a relocalization comes with relocalization).
+        # Acceptance gates (reference :570-575): stricter for max_frames
+        # frames after a relocalization.
+        if self.frames_since_reloc < self.max_frames and self.n_inliers < 50:
+            return False
         return self.n_inliers >= 30
 
     def _count_found(self, cur: Frame):
@@ -621,7 +653,8 @@ class Tracker(MonoInitAndKeyframes):
                 pos_lm, normal, mind, maxd, desc_lm, valid_lm, last2local)
         # Acceptance gates first (reference :570-575): a weak result falls
         # back to the two-step path with no state changed.
-        if n_matched < 20 or n_in1 < 10 or n_in2 < 30:
+        if (n_matched < 20 or n_in1 < 10 or n_in2 < 30
+                or (self.frames_since_reloc < self.max_frames and n_in2 < 50)):
             return None
         with t.stage("bookkeeping"):
             cur.mp_ids[:] = -1
@@ -644,10 +677,160 @@ class Tracker(MonoInitAndKeyframes):
             self.update_local_keyframes()
         return True
 
+    # ---- relocalization (reference :796-884) --------------------------------
+
+    def relocalization(self) -> bool:
+        """See _relocalization_impl; counts attempts and accepts in
+        reloc_stats. (The JAX tracker also hides localization mode's
+        temporary VO points here; the port has no localization mode.)"""
+        self.reloc_stats["attempts"] += 1
+        ok = self._relocalization_impl()
+        if ok:
+            self.reloc_stats["ok"] += 1
+        return ok
+
+    def _relocalization_impl(self) -> bool:
+        """Reference Relocalization: BoW candidate keyframes -> BoW matching
+        (>= 15) -> EPnP-RANSAC -> pose optimization -> projection top-up ->
+        accept at >= 50 inliers. Every candidate (no cap) goes through ONE
+        node-constrained search and the viable ones through ONE batched
+        EPnP-RANSAC, then a host loop tries them in candidate order, so a
+        correct candidate ranked low still relocalizes."""
+        if self.place_rec is None or not self.place_rec.ready:
+            return False
+        cur = self.current
+        xy, c_ang, c_oct, c_valid, c_desc, _ = unpack(cur.packed)
+        bow, node_ids = self.place_rec.frame_bow(c_desc, c_valid)
+        candidates = self.place_rec.db.detect_reloc_candidates(bow, self.arena)
+        if not candidates:
+            self.reloc_stats["no_candidates"] += 1
+            return False
+        cand_kfs = [kf for kf in (self.arena.kfs.get(c) for c in candidates)
+                    if kf is not None and not kf.bad]
+        if not cand_kfs:
+            return False
+        # ONE node-constrained BoW match over all candidates (keyframes from
+        # the 2x-features init builder have more slots: pad).
+        C = len(cand_kfs)
+        n1 = max(kf.feats.n_slots for kf in cand_kfs)
+        desc1 = np.zeros((C, n1, 8), np.uint32)
+        has1 = np.zeros((C, n1), bool)
+        ang1 = np.zeros((C, n1), np.float32)
+        node1 = np.full((C, n1), -1, np.int32)
+        for i, kf in enumerate(cand_kfs):
+            m = kf.feats.n_slots
+            has = (kf.mp_ids >= 0) & kf.feats.valid
+            nk = kf.node_ids if kf.node_ids is not None else np.zeros(m, np.int32)
+            desc1[i, :m] = kf.feats.desc
+            has1[i, :m] = has
+            ang1[i, :m] = kf.feats.angle
+            node1[i, :m] = np.where(has, nk, -1)
+        t = self._tensor
+        idx2_all = matching.search_by_node_id(
+            t(desc1), t(has1), t(ang1), t(node1), c_desc, c_valid, c_ang,
+            node_ids.to(torch.int64), nn_ratio=0.75).idx2.cpu().numpy()
+        # Host: per-candidate 3D-2D correspondences on the frame's slots.
+        n = cur.n_slots
+        Xw_all = np.zeros((C, n, 3), np.float32)
+        ok_all = np.zeros((C, n), bool)
+        mp_of_slot = np.full((C, n), -1, np.int64)
+        viable = []
+        for i, kf in enumerate(cand_kfs):
+            idx2 = idx2_all[i]
+            rows = np.nonzero(idx2[:kf.feats.n_slots] >= 0)[0]
+            if len(rows) < 15:            # reference >= 15 gate (:830)
+                continue
+            for r in rows:
+                mid = int(kf.mp_ids[r])
+                mp = self.arena.mps.get(mid)
+                if mp is not None and not mp.bad:
+                    j = idx2[r]
+                    Xw_all[i, j] = mp.pos
+                    ok_all[i, j] = True
+                    mp_of_slot[i, j] = mid
+            if ok_all[i].sum() >= 15:
+                viable.append(i)
+        if not viable:
+            self.reloc_stats["no_viable_pnp"] += 1
+            return False
+        # ONE batched EPnP-RANSAC over the viable candidates.
+        cam = self.cfg.camera
+        V = len(viable)
+        pnp_ok, T_pnp, pnp_inl, _ = pnp.epnp_ransac_batch(
+            t(Xw_all[viable]), xy, self.programs.inv_sigma2[c_oct],
+            t(ok_all[viable]), t(pnp.make_pnp_sample_sets(n, 300, 0)),
+            cam.fx, cam.fy, cam.cx, cam.cy)
+        out = torch.cat([pnp_ok.float(), T_pnp.reshape(-1),
+                         pnp_inl.float().reshape(-1)]).cpu().numpy()
+        pnp_ok = out[:V] > 0.5
+        T_pnp = out[V:17 * V].reshape(V, 4, 4)
+        pnp_inl = out[17 * V:].reshape(V, n) > 0.5
+        # Accept loop in candidate order (the reference iterates until a
+        # match); each attempt is two pose optimizations.
+        for j, i in enumerate(viable):
+            if not pnp_ok[j]:
+                continue
+            kf = cand_kfs[i]
+            cur.mp_ids[:] = -1
+            inl = pnp_inl[j]
+            cur.mp_ids[inl] = mp_of_slot[i][inl]
+            if not self._optimize_current_pose(T_pnp[j], min_map_matches=10):
+                continue
+            # Projection top-up against the keyframe's full point set
+            # (reference :863-880, radius th=10).
+            self._reloc_topup(kf)
+            if self._optimize_current_pose(cur.Tcw, min_map_matches=50):
+                self.ref_kf_id = kf.id
+                cur.ref_kf_id = kf.id
+                return True
+        self.reloc_stats["all_candidates_failed"] += 1
+        return False
+
+    def _reloc_topup(self, kf):
+        """SearchByProjection of the candidate keyframe's points not yet
+        attached to the frame, at the frame's current pose."""
+        cur = self.current
+        attached = {int(m) for m in cur.mp_ids if m >= 0}
+        slots = []
+        for mid in kf.mp_ids:
+            if mid < 0 or int(mid) in attached:
+                continue
+            mp = self.arena.mps.get(int(mid))
+            if mp is None or mp.bad:
+                continue
+            slots.append((int(mid), mp))
+        if not slots:
+            return
+        P = len(slots)
+        pos = np.stack([mp.pos for _, mp in slots])
+        desc = np.stack([mp.desc for _, mp in slots])
+        proj, valid = self._project(pos, cur.Tcw)
+        radius = np.full(P, RELOC_TOPUP_RADIUS, np.float32)
+        already = cur.mp_ids >= 0
+        # Predicted octave from the scale-invariance band (PredictScale).
+        Ow = -cur.Tcw[:3, :3].T @ cur.Tcw[:3, 3]
+        dist = np.linalg.norm(pos - Ow[None, :], axis=1)
+        maxd = np.asarray([mp.max_dist for _, mp in slots])
+        with np.errstate(divide="ignore", invalid="ignore"):
+            lvl = np.ceil(np.log(np.maximum(maxd, 1e-9)
+                                 / np.maximum(dist, 1e-9))
+                          / np.log(self.cfg.orb.scale_factor))
+        lvl = np.clip(np.nan_to_num(lvl, nan=0.0), 0,
+                      self.cfg.orb.n_levels - 1).astype(np.int32)
+        xy, _, c_oct, c_valid, c_desc, _ = unpack(cur.packed)
+        t = self._tensor
+        idx2 = matching.search_by_projection_set(
+            t(proj.astype(np.float32)), t(radius), t(lvl), t(valid), t(desc),
+            xy, c_desc, c_valid, c_oct, t(already)).idx2.cpu().numpy()
+        for k in np.nonzero(idx2 >= 0)[0]:
+            cur.mp_ids[idx2[k]] = slots[k][0]
+
     # ---- reset and trajectory (reference :887-927, :239) -------------------
 
     def reset(self):
         self.local_mapper.reset()
+        if self.place_rec is not None:
+            self.place_rec.reset()      # reference Tracking::Reset clears the DB
         self._reset_map()
         self.velocity = None
         self.ref_kf_id = -1

@@ -158,9 +158,12 @@ class MonoInitAndKeyframes:
     # ---- keyframe decision / creation (reference :578-659) ----------------
 
     def need_new_keyframe(self) -> bool:
-        # (The reference's hold-off right after a relocalization comes
-        # with relocalization.)
-        min_obs = 3 if self.arena.n_keyframes() > 2 else 2
+        n_kfs = self.arena.n_keyframes()
+        # No keyframe for max_frames frames after a relocalization once
+        # the map holds more than max_frames keyframes.
+        if self.frames_since_reloc < self.max_frames and n_kfs > self.max_frames:
+            return False
+        min_obs = 3 if n_kfs > 2 else 2
         ref = self.arena.kfs.get(self.ref_kf_id)
         n_ref_matches = (ref.n_tracked_points(self.arena, min_obs)
                          if ref is not None else 0)

@@ -221,17 +221,21 @@ def search_by_projection_set_batch(proj_xy, radius, pred_level, pt_valid,
                                     already_found2, max_dist=TH_LOW).idx2
 
 
-def search_by_node_id(desc1, valid1, ang1, node1, desc2, valid2, ang2, node2):
+def search_by_node_id(desc1, valid1, ang1, node1, desc2, valid2, ang2, node2,
+                      nn_ratio: float = 0.7):
     """BoW-node constrained matching (reference SearchByBoW): candidates
-    under the same vocabulary node (-1 = none), ratio 0.7, TH_LOW,
-    one-to-one, rotation histogram. Returns MatchResult over set 1."""
+    under the same vocabulary node (-1 = none), ratio test, TH_LOW,
+    one-to-one, rotation histogram. Set 1 may carry leading axes (set 2
+    broadcasts). Returns MatchResult over set 1."""
     D = distance_matrix(desc1, desc2)
-    mask = (valid1[:, None] & valid2[None, :] & (node1[:, None] >= 0)
-            & (node1[:, None] == node2[None, :]))
+    mask = (valid1[..., :, None] & valid2[None, :]
+            & (node1[..., :, None] >= 0)
+            & (node1[..., :, None] == node2[None, :]))
     best_j, best_d, second_d = _masked_best2(D, mask)
     matched = ((best_d <= TH_LOW)
-               & (best_d.to(torch.float32) < 0.7 * second_d.to(torch.float32))
+               & (best_d.to(torch.float32) < nn_ratio * second_d.to(torch.float32))
                & valid1)
     matched = _dedupe_keep_best(best_j, best_d, matched, desc2.shape[0])
     matched = rotation_consistency(ang1, ang2[best_j], matched)
     return MatchResult(_no_match(matched, best_j), best_d)
+

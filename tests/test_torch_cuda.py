@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain PyTorch versions on the card.
+"""The port's CUDA kernels against their plain PyTorch versions on the card,
+and the relocalization path's torch code on the card against the CPU.
 
 Marked `cuda`: they skip without a GPU (a CUDA kernel has no CPU mode).
 Run them on a machine with an NVIDIA GPU and nvcc (--noconftest: the
@@ -216,3 +217,99 @@ def test_unfused_route_matches_fused_route(dev):
     assert int(flips.sum()) <= 0.01 * int(fu.valid.sum())
     diff = (fu.desc != un.desc).any(-1) & fu.valid
     assert not bool((diff & ~flips).any())
+
+
+def _clustered_descriptors(rng, n, n_centres=60, flips=20):
+    """u32[n,8] descriptors scattered around random centres."""
+    centres = rng.integers(0, 2 ** 32, size=(n_centres, 8), dtype=np.uint32)
+    bits = np.unpackbits(centres[rng.integers(0, n_centres, n)].view(np.uint8),
+                         axis=1)
+    for i in range(n):
+        bits[i, rng.choice(256, flips, replace=False)] ^= 1
+    return np.packbits(bits, axis=1).view(np.uint32)
+
+
+@pytest.fixture(scope="module")
+def vocab_trees():
+    from orb_slam_system_tpu_torch.vocab.vocabulary import Vocabulary
+    D = _clustered_descriptors(np.random.default_rng(0), 2500)
+    return {"self_trained": Vocabulary.build(D, k=10, L=3, seed=0),
+            "k4_L6": Vocabulary.build(D, k=4, L=6, seed=1)}
+
+
+@pytest.mark.parametrize("n", [1000, 0, 2048])
+@pytest.mark.parametrize("tree", ["self_trained", "k4_L6"])
+def test_vocab_descent_bit_equal(dev, vocab_trees, tree, n):
+    """The torch descent on the card equals the numpy descent (word ids,
+    weight bits, node ids), some slots invalid."""
+    voc = vocab_trees[tree]
+    rng = np.random.default_rng(n)
+    D = _clustered_descriptors(rng, n)
+    valid = rng.uniform(size=n) < 0.9
+    got = voc.transform_device(torch.from_numpy(D.view(np.int32)).to(dev),
+                               torch.from_numpy(valid).to(dev))
+    want = voc.transform(D, valid)
+    for g, w in zip(got, want):
+        assert g.is_cuda
+        np.testing.assert_array_equal(g.cpu().numpy().view(np.int32),
+                                      w.view(np.int32))
+
+
+def test_epnp_ransac_batch_matches_cpu(dev):
+    """epnp_ransac_batch on the card against the port on the CPU, C = 3
+    (good, 60 wrong associations, garbage): ok equal, inlier masks equal
+    except <= 1% of N, rotation within 0.05 deg and translation within 1e-3
+    (tests/test_torch_pnp.py's tolerances against JAX)."""
+    from orb_slam_system_tpu_torch.solvers import pnp
+    from orb_slam_system_tpu_torch.utils.lie import so3_exp
+    rng = np.random.default_rng(0)
+    N = 1024
+    X = rng.uniform(-3, 3, size=(N, 3)).astype(np.float32)
+    X[:, 2] = rng.uniform(4, 10, size=N)
+    R = so3_exp(torch.from_numpy((rng.normal(size=3) * 0.3).astype(np.float32))).numpy()
+    t = (rng.normal(size=3) * 0.5).astype(np.float32)
+    Xc = X @ R.T + t
+    uv = (Xc[:, :2] / Xc[:, 2:3] * 500.0 + [320.0, 240.0]
+          + rng.normal(size=(N, 2)) * 0.3).astype(np.float32)
+    X_out = X.copy()
+    X_out[:60] = rng.uniform(-3, 3, size=(60, 3)) + [0, 0, 7]
+    X_bad = rng.uniform(-3, 3, size=(N, 3)).astype(np.float32) + [0, 0, 6]
+    Xs = np.stack([X, X_out, X_bad]).astype(np.float32)
+    valid = rng.uniform(size=(3, N)) < 0.9
+    args = [torch.from_numpy(a) for a in (
+        Xs, uv, np.ones(N, np.float32), valid,
+        pnp.make_pnp_sample_sets(N, 300, 0).astype(np.int64))]
+    cam = (500.0, 500.0, 320.0, 240.0)
+    ok_c, T_c, inl_c, _ = pnp.epnp_ransac_batch(*args, *cam)
+    ok_g, T_g, inl_g, _ = (x.cpu() for x in pnp.epnp_ransac_batch(
+        *(a.to(dev) for a in args), *cam))
+    assert ok_c.tolist() == ok_g.tolist() == [True, True, False]
+    for c in range(2):
+        assert int((inl_c[c] != inl_g[c]).sum()) <= 0.01 * N
+        # The angle from the skew part (arccos of the trace of two float32
+        # rotations cannot resolve 0.05 deg).
+        M = (T_c[c, :3, :3].double() @ T_g[c, :3, :3].double().T).numpy()
+        s = np.linalg.norm([M[2, 1] - M[1, 2], M[0, 2] - M[2, 0],
+                            M[1, 0] - M[0, 1]])
+        assert np.degrees(np.arctan2(0.5 * s, 0.5 * (np.trace(M) - 1.0))) < 0.05
+        assert float((T_c[c, :3, 3] - T_g[c, :3, 3]).abs().max()) < 1e-3
+
+
+def test_forced_relocalization_640x480(dev):
+    """A 40-frame 640x480 System run on the card self-trains its vocabulary;
+    forced LOST, a view of frame 20 relocalizes to OK."""
+    from orb_slam_system_tpu_torch.config import TrackingState
+    from orb_slam_system_tpu_torch.drivers import mono_synthetic
+    import tempfile
+    with tempfile.TemporaryDirectory() as out:
+        slam, _ = mono_synthetic.run(40, out, 1000, 640, 480, device="cuda",
+                                     verbose=False)
+    assert slam.place_rec.ready
+    cfg = mono_synthetic.make_config(640, 480, 1000)
+    poses = mono_synthetic.orbit_trajectory(40, radius=0.35, depth=-2.0, tilt=0.3)
+    img = mono_synthetic.make_renderer(cfg).render(poses[20])
+    slam.tracker.state = TrackingState.LOST
+    slam.tracker.velocity = None
+    assert slam.track_monocular(img, 100.0) is not None
+    assert slam.get_tracking_state() == TrackingState.OK
+    assert slam.tracker.reloc_stats["ok"] == 1

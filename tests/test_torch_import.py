@@ -13,6 +13,9 @@ import importlib, pkgutil, sys
 import orb_slam_system_tpu_torch as pkg
 import chip_smoke, kernel_times
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for new in ("vocab.vocabulary", "mapping.keyframe_db",
+            "models.place_recognition", "solvers.pnp"):
+    assert pkg.__name__ + "." + new in names, new
 for n in names:
     importlib.import_module(n)
 bad = sorted(m for m in sys.modules
@@ -60,10 +63,10 @@ def _run(code):
 
 
 def test_port_never_imports_jax():
-    """Every module of the port (walked, so new ones are covered),
-    chip_smoke.py and kernel_times.py import without jax or the JAX
-    package."""
-    assert int(_run(_IMPORT_ALL).split()[-1]) >= 32
+    """Every module of the port (walked, so new ones are covered; the
+    place-recognition and relocalization modules named), chip_smoke.py and
+    kernel_times.py import without jax or the JAX package."""
+    assert int(_run(_IMPORT_ALL).split()[-1]) >= 44
 
 
 def test_entry_points_default_to_the_card():
@@ -72,11 +75,14 @@ def test_entry_points_default_to_the_card():
 
     from orb_slam_system_tpu_torch.models.frame import FrameBuilder
     from orb_slam_system_tpu_torch.models.local_mapping import LocalMapper
+    from orb_slam_system_tpu_torch.models.place_recognition import (
+        PlaceRecognition)
     from orb_slam_system_tpu_torch.models.system import System
     from orb_slam_system_tpu_torch.models.track_device import TrackPrograms
     from orb_slam_system_tpu_torch.models.tracking import Tracker
     from orb_slam_system_tpu_torch.drivers.mono_synthetic import run
-    for entry in (FrameBuilder, TrackPrograms, System, Tracker, LocalMapper, run):
+    for entry in (FrameBuilder, TrackPrograms, System, Tracker, LocalMapper,
+                  PlaceRecognition, run):
         assert inspect.signature(entry).parameters["device"].default == "cuda", entry
 
 

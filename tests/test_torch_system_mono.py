@@ -2,11 +2,13 @@
 tests/test_e2e_mono.py and against the JAX System on the same frames.
 
 The port runs through drivers/mono_synthetic.run at that test's settings:
-320x240, 400 features, 25 frames of the textured-plane orbit. The JAX System tracks the same rendered frames with vocabulary
-self-training off (the port has no place recognition yet; without it the
-JAX loop closer stays idle too). Criteria: the e2e file's five checks; both
-systems initialize on the same frame and track the same number of frames;
-their ATEs differ by < 1 cm.
+320x240, 400 features, 25 frames of the textured-plane orbit. The JAX System
+tracks the same rendered frames with its default place recognition (the
+vocabulary self-trains once there are five keyframes, as the port's does)
+and its loop closer switched off on the instance (the port has none).
+Criteria: the e2e file's five checks; both systems initialize on the same
+frame, track the same number of frames and end with the same keyframe and
+map point counts; their ATEs differ by < 1 cm.
 """
 
 import numpy as np
@@ -43,7 +45,7 @@ def jax_run():
         fx=c.fx, fy=c.fy, cx=c.cx, cy=c.cy, fps=30.0, width=c.width,
         height=c.height), orb=JORBConfig(n_features=N_FEATURES))
     slam = JSystem(None, cfg)
-    slam.place_rec.allow_self_train = False
+    slam.local_mapper.loop_closer = None
     gt, states = {}, []
     for i, (img, T) in enumerate(zip(frames, poses)):
         slam.track_monocular(img, i / 30.0)
@@ -105,8 +107,8 @@ def test_map_point_integrity(port_run):
 
 
 def test_matches_jax_system(port_run, jax_run):
-    """Same initialization frame, same number of tracked frames, ATE
-    within 1 cm of the JAX System's."""
+    """Same initialization frame, same number of tracked frames, the same
+    keyframe and point counts, ATE within 1 cm of the JAX System's."""
     slam, rmse, _ = port_run
     jslam, jrmse, jstates, jest = jax_run
     states = [r["state"] for r in slam.telemetry.records]
@@ -115,6 +117,9 @@ def test_matches_jax_system(port_run, jax_run):
     est = traj_io.frame_poses(slam.arena, slam.tracker.trajectory)
     assert (sum(1 for *_, lost in est if not lost)
             == sum(1 for *_, lost in jest if not lost))
+    assert slam.arena.n_keyframes() == jslam.arena.n_keyframes()
+    assert slam.arena.n_points() == jslam.arena.n_points()
+    assert slam.place_rec.ready and jslam.place_rec.ready
     assert jrmse < 0.03
     assert abs(rmse - jrmse) < 0.01, (rmse, jrmse)
 
