@@ -51,11 +51,26 @@ Phases, each of which fails the run (exit code != 0) when it fails:
      CPU), and the vocabulary descent of 1000 descriptors on the card
      against the numpy descent on the host, on the self-trained tree and on
      a k=10, L=6 tree (ORBvoc's shape, 1,111,111 nodes) made from a seed,
-     bit-equal on the card.
-The second-to-last line is a JSON object with each kernel's launches, error,
-times and bound; the last line is {"ok": true, "device": {...}}. Without
-CUDA, or without the package beside it, the script exits non-zero and prints
-no result.
+     bit-equal on the card;
+  7. loop closing at full width: System.track_monocular over the 90-frame
+     640x480 circle of drivers/loop_synthetic.run (phase 5's front end,
+     texture scale 440, blur sigma 3.6 px over +-8 taps and noise 4.5 on
+     frames 16-47, synchronous mapping, global BA on its own thread as the
+     System's default). Check tests/test_e2e_loop.py's bars (>= 1 loop
+     closed, >= 80 of 90 frames tracked, ATE < 10 cm), kernel A and kernel
+     B's describe mode launched once per frame build (kernel C and B's blur
+     mode never), and no pose-epoch violation. Print the loop's keyframe,
+     its matched keyframe and the Sim3 scale, whether the global BA landed
+     during the run or at shutdown, the loop closer's funnel, the wall ms of
+     each loop and mapping stage, and the device kernels and ms of
+     sim3_ransac_batch, optimize_sim3, optimize_essential_graph and one
+     global-BA chunk, each re-run on the inputs the run gave it, and the
+     global-BA solver the run did not take (dense Schur or PCG) on the
+     same chunk.
+The second-to-last line is a JSON object with each kernel's launches (on the
+path that runs it, and in every phase), error, times and bound; the last
+line is {"ok": true, "device": {...}}. Without CUDA, or without the package
+beside it, the script exits non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -82,11 +97,14 @@ SYSTEM_FRAMES = 60
 MAX_RELOC_ERR_M = 0.01      # relocalized camera centre vs the tracked one
 MIN_TRACKED_SHARE = 0.9     # of the System's frames after initialization
 MAX_ATE_M = 0.03            # tests/test_e2e_mono.py bar
+LOOP_FRAMES = 90            # tests/test_e2e_loop.py's short circle
+MIN_LOOP_TRACKED = 80       # ... and its bars
+MAX_LOOP_ATE_M = 0.10
 # H100 SXM peaks (NVIDIA data sheet, dense): device memory bytes/s and
 # float32 operations/s outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
-SPIN_LEAD = 32              # spin kernels that open each profiler window
+SPIN_LEAD = 512             # spin kernels that open each profiler window
 
 
 def bound_ms(n_bytes: float, n_ops: float):
@@ -125,8 +143,10 @@ def _device_events(prof, kernel=None):
 def _open_window(torch):
     """Open a profiler window with SPIN_LEAD short spin kernels and wait for
     them. Late in this script's process (after the System's profiles) the
-    profiler has dropped the first 5-8 kernel records of every window; the
-    spin kernels take that loss instead of the measured calls."""
+    profiler drops the first records of every window, 5-8 in phase 6 and
+    up to 42 after phase 7's essential-graph windows (the loss grows with
+    the records profiled before); the spin kernels take that loss instead
+    of the measured calls."""
     for _ in range(SPIN_LEAD):
         torch.cuda._sleep(20000)
     torch.cuda.synchronize()
@@ -432,6 +452,144 @@ def relocalization_phase(torch, slam, kernels, pnp, unpack, Vocabulary,
                 pnp_call_ms=pnp_ms, descent=descent)
 
 
+def loop_phase(torch, dev, kernels, loop_synthetic, loop_closing, sim3,
+               pose_graph, local_ba, card) -> dict:
+    """Phase 7 (see the module docstring); returns its numbers. The solver
+    calls of the run are recorded (inputs kept) to time them afterwards, by
+    spies set on the solver modules: they see the calls that loop_closing
+    makes through the module attribute (sim3.sim3_ransac_batch, ...), and
+    a solver it imported by name would be reported missing."""
+    W, H = 640, 480
+    captured: dict = {}
+    spied = [(sim3, "sim3_ransac_batch"), (pose_graph, "optimize_sim3"),
+             (pose_graph, "optimize_essential_graph"),
+             (local_ba, "bundle_adjust"), (local_ba, "bundle_adjust_cg")]
+    originals = {name: getattr(mod, name) for mod, name in spied}
+
+    def spy(name):
+        key = name
+        if name.startswith("bundle_adjust"):
+            key = "gba_chunk"
+
+        def call(*a, **kw):
+            # A global-BA chunk is a bundle_adjust(_cg) call of CHUNK_ITERS
+            # iterations (local BA runs 5 and 10).
+            if key != "gba_chunk" or (
+                    kw.get("n_iters") == loop_closing.GBARunner.CHUNK_ITERS):
+                captured.setdefault(key, (originals[name], a, kw))
+            return originals[name](*a, **kw)
+        return call
+
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    for mod, name in spied:
+        setattr(mod, name, spy(name))
+    t0 = time.perf_counter()
+    try:
+        slam, ate, n_tracked = loop_synthetic.run(
+            LOOP_FRAMES, None, 1000, W, H, device=dev.type, verbose=True)
+    finally:
+        for mod, name in spied:
+            setattr(mod, name, originals[name])
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    lc = slam.loop_closer
+    recs = slam.telemetry.records
+    landed = next((i for i, r in enumerate(recs) if r["gba_applied"] > 0), None)
+    gba_when = ("not applied" if lc.n_gba_applied == 0 else
+                "at shutdown" if landed is None else
+                f"during the run, after frame {landed}")
+    print(f"loop circle: {LOOP_FRAMES} frames {W}x{H} in {wall_s:.1f} s; loops "
+          f"closed {lc.n_loops_closed} (last: keyframe, matched keyframe, "
+          f"Sim3 scale {lc.last_loop}); {n_tracked}/{LOOP_FRAMES} frames tracked; ATE "
+          f"RMSE (Sim3-aligned) {100 * ate:.3f} cm; {slam.arena.n_keyframes()} "
+          f"keyframes, {slam.arena.n_points()} map points; global BAs applied "
+          f"{lc.n_gba_applied}, {gba_when}; pose epoch "
+          f"{slam.arena.pose_epoch}, epoch violations "
+          f"{slam.tracker.epoch_violations}; loop_closer.stats "
+          f"{dict(lc.stats)}; launches {launches}; {card}", flush=True)
+    stage_ms = {}
+    for label, timer in (("tracking", slam.tracker.stage_ms),
+                         ("mapping", slam.local_mapper.stage_ms),
+                         ("loop closing", lc.stage_ms)):
+        stage_ms[label] = {k: dict(total_ms=v, calls=len(timer.history[k]),
+                                   max_ms=max(timer.history[k]))
+                           for k, v in timer.ms.items()}
+        print(f"loop circle {label} stages (wall ms, host clock): " + ", ".join(
+            f"{k} {v:.1f} total / {len(timer.history[k])} calls / max "
+            f"{max(timer.history[k]):.1f}" for k, v in sorted(timer.ms.items()))
+            + f"; {card}", flush=True)
+    if lc.n_loops_closed < 1:
+        fail("the loop circle closed no loop")
+    if n_tracked < MIN_LOOP_TRACKED:
+        fail(f"the loop circle tracked {n_tracked} of {LOOP_FRAMES} frames "
+             f"(< {MIN_LOOP_TRACKED})")
+    if not ate < MAX_LOOP_ATE_M:
+        fail(f"loop circle ATE {100 * ate:.3f} cm >= {100 * MAX_LOOP_ATE_M:g} cm")
+    if slam.tracker.epoch_violations:
+        fail(f"{slam.tracker.epoch_violations} pose-epoch violations")
+    for name, want in (("fast_score_nms", LOOP_FRAMES),
+                       ("gather_blur_describe", LOOP_FRAMES),
+                       ("brief_pack", 0), ("gather_blur_moments", 0),
+                       ("gather_patches", 0)):
+        if launches[name] != want:
+            fail(f"kernel {name} launched {launches[name]} times in the loop "
+                 f"circle's {LOOP_FRAMES} frame builds, not {want}")
+    keys = ("sim3_ransac_batch", "optimize_sim3", "optimize_essential_graph",
+            "gba_chunk")
+    missing = [k for k in keys if k not in captured]
+    if missing:
+        fail(f"the loop circle never called {missing}")
+    solves = {}
+    for name in keys:
+        f, a, kw = captured[name]
+        fn = (lambda f=f, a=a, kw=kw: f(*a, **kw))
+        call_ms = cuda_ms(torch, fn, reps=3)
+        d_ms, n_k = stage_device_ms(torch, fn, reps=3)
+        if name == "gba_chunk":
+            label = (f"one global-BA chunk ({f.__name__}, "
+                     f"{kw['n_iters']} LM iterations)")
+            shapes = [tuple(a[0].Tcw.shape), tuple(a[0].points.shape),
+                      tuple(a[0].e_cam.shape)]
+        else:
+            label = name
+            shapes = [tuple(x.shape) for x in a
+                      if torch.is_tensor(x) and x.dim() >= 2][:2]
+        solves[name] = dict(device_ms=d_ms, kernels=n_k, call_ms=call_ms,
+                            shapes=shapes, solver=f.__name__)
+        print(f"{label} on the run's inputs {shapes}: {n_k} device kernels, "
+              f"{d_ms:.3f} ms summed device time (profiler), call {call_ms:.3f} "
+              f"ms (CUDA events), device idle share "
+              f"{1.0 - d_ms / call_ms:.3f}; {card}", flush=True)
+    # The global-BA solver the run did not take (GBA_DENSE_MAX_CAMS picks
+    # dense Schur or PCG by keyframe count) on the same chunk, so the two
+    # stand side by side at this map's size.
+    f, a, kw = captured["gba_chunk"]
+    dense, cg = originals["bundle_adjust"], originals["bundle_adjust_cg"]
+    if f is dense:
+        fn = (lambda: cg(*a, n_iters=kw["n_iters"],
+                         cg_iters=loop_closing.GBARunner.CG_ITERS))
+    else:
+        fn = (lambda: dense(*a, n_iters=kw["n_iters"]))
+    other = "bundle_adjust_cg" if f is dense else "bundle_adjust"
+    call_ms = cuda_ms(torch, fn, reps=3)
+    d_ms, n_k = stage_device_ms(torch, fn, reps=3)
+    solves["gba_chunk_other_solver"] = dict(
+        device_ms=d_ms, kernels=n_k, call_ms=call_ms,
+        shapes=solves["gba_chunk"]["shapes"], solver=other)
+    taken = solves["gba_chunk"]
+    print(f"global-BA chunk by solver at {taken['shapes'][0][0]} keyframes "
+          f"(GBA_DENSE_MAX_CAMS {loop_closing.GBA_DENSE_MAX_CAMS}): "
+          f"{taken['solver']} (taken) {taken['device_ms']:.3f} ms device / "
+          f"{taken['call_ms']:.3f} ms call, {other} {d_ms:.3f} ms device / "
+          f"{call_ms:.3f} ms call in {n_k} kernels; {card}", flush=True)
+    return dict(last_loop=lc.last_loop, n_tracked=n_tracked, ate_cm=100 * ate,
+                keyframes=slam.arena.n_keyframes(), points=slam.arena.n_points(),
+                gba=gba_when, stats=dict(lc.stats), launches=launches,
+                wall_s=wall_s, stage_ms=stage_ms, solves=solves)
+
+
 def main() -> None:
     try:
         import torch
@@ -443,7 +601,8 @@ def main() -> None:
         from orb_slam_system_tpu_torch.config import (CameraConfig, ORBConfig,
                                                       SlamConfig, TrackingState)
         from orb_slam_system_tpu_torch.dataio import trajectory as traj_io
-        from orb_slam_system_tpu_torch.drivers import mono_synthetic
+        from orb_slam_system_tpu_torch.drivers import loop_synthetic, mono_synthetic
+        from orb_slam_system_tpu_torch.models import loop_closing
         from orb_slam_system_tpu_torch.dataio.synthetic import (
             PlanarSceneRenderer, make_texture, orbit_trajectory)
         from orb_slam_system_tpu_torch.models.frame import FrameBuilder
@@ -455,7 +614,7 @@ def main() -> None:
         from orb_slam_system_tpu_torch.ops.brief import _angle_bins
         from orb_slam_system_tpu_torch.ops.orientation import angles_from_moments
         from orb_slam_system_tpu_torch.ops.pyramid import build_pyramid
-        from orb_slam_system_tpu_torch.solvers import pnp
+        from orb_slam_system_tpu_torch.solvers import local_ba, pnp, pose_graph, sim3
         from orb_slam_system_tpu_torch.utils import kernels
         from orb_slam_system_tpu_torch.vocab.vocabulary import Vocabulary
     except ImportError as e:
@@ -904,6 +1063,10 @@ def main() -> None:
                                  Vocabulary, traj_io, mono_synthetic,
                                  TrackingState, card)
 
+    # 7. Loop closing; the counters count only this phase.
+    loop = loop_phase(torch, dev, kernels, loop_synthetic, loop_closing, sim3,
+                      pose_graph, local_ba, card)
+
     # Launches of each kernel on the path that runs it: the System for A and
     # B (its describe mode), the extractor's unfused route for C and D.
     path_launches = dict(
@@ -911,7 +1074,14 @@ def main() -> None:
         gather_blur_moments=system_launches["gather_blur_describe"],
         brief_pack=unfused_launches["brief_pack"],
         gather_patches=unfused_launches["gather_patches"])
+    by_phase = {"unfused_route": unfused_launches, "slice": launches,
+                "system": system_launches, "relocalization": reloc["launches"],
+                "loop": loop["launches"]}
+    counter = dict(fast_score_nms="fast_score_nms",
+                   gather_blur_moments="gather_blur_describe",
+                   brief_pack="brief_pack", gather_patches="gather_patches")
     print(json.dumps({"relocalization": reloc}), flush=True)
+    print(json.dumps({"loop": loop}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": r["source"],
@@ -921,6 +1091,7 @@ def main() -> None:
          "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
          "library_ms": r["library_ms"],
          "library_device_ms": r.get("library_device_ms"),
+         "launches_by_phase": {ph: c[counter[name]] for ph, c in by_phase.items()},
          **{k: r[k] for k in ("mode", "canvas_floats", "canvas_floats_read",
                               "blur_mode", "replaced_chain") if k in r}}
         for name, r in report.items()]}),

@@ -112,9 +112,10 @@ class FrameBuilder:
 
     def extract_packed(self, img) -> torch.Tensor:
         """img: u8/f32 [H, W] (numpy or tensor) -> packed f32[N, 16] on the
-        FrameBuilder's device. u8 input uploads as u8 and is cast there."""
+        FrameBuilder's device. u8 input uploads as u8 and is cast there; any
+        memory layout is taken (the kernels need a contiguous image)."""
         k = self.cfg.camera
-        x = torch.as_tensor(img).to(self.device).to(torch.float32)
+        x = torch.as_tensor(img).to(self.device).to(torch.float32).contiguous()
         fs = self.extractor(x[None])
         und = cam_ops.undistort_points(fs.xy, k.fx, k.fy, k.cx, k.cy,
                                        k.k1, k.k2, k.p1, k.p2, k.k3)

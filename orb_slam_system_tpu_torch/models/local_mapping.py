@@ -13,8 +13,10 @@ Triangulation + fusion run as two chained device steps with one packed
 fetch (ops/mapper_fused.py), local BA as one packed fetch
 (solvers/local_ba.py); the arena bookkeeping stays on the host. Each
 processed keyframe is indexed for place recognition (BoW, keyframe
-database) when a PlaceRecognition service is given. Not in this port: the
-async worker thread and the hand-off to loop closing.
+database) when a PlaceRecognition service is given, and every keyframe of
+the batch still alive after culling is handed to the loop closer
+(`loop_closer`, set by the System) in insertion order. Not in this port:
+the async worker thread.
 """
 
 from __future__ import annotations
@@ -61,6 +63,7 @@ class LocalMapper:
         self.cfg = cfg
         self.arena = arena
         self.place_rec = place_rec
+        self.loop_closer = None  # set by System
         self.device = torch.device(device)
         self.queue: deque[int] = deque()
         self.recent_points: list[tuple[int, int]] = []  # (mp_id, birth_kf_id)
@@ -115,6 +118,13 @@ class LocalMapper:
             if kf.id in self.arena.kfs:
                 with t.stage("cull_kfs"):
                     self.cull_keyframes(kf)
+            # Hand-off to loop closing (reference Run :72): every batch
+            # keyframe still alive, in insertion order.
+            if self.loop_closer is not None:
+                for bkf in batch:
+                    if bkf.id in self.arena.kfs:
+                        with t.stage("loop_closer"):
+                            self.loop_closer.process(bkf.id)
 
     def process_new_keyframe(self, kf: KeyFrameRec):
         """Reference ProcessNewKeyFrame: bind tracked map points, refresh
@@ -429,11 +439,12 @@ class LocalMapper:
         radius = (radius_th * self.scale_factors[lvl]).astype(np.float32)
         return proj, radius, lvl, good
 
-    def _fuse_jobs(self, jobs, radius_th=3.0):
+    def _fuse_jobs(self, jobs, radius_th=3.0, replace_existing=False):
         """Fuse (destination keyframe, point ids) jobs with ONE batched
         device search, then merge job by job on the host (later jobs see
         earlier replacements); descriptors and normals are refreshed once
-        over every touched survivor."""
+        over every touched survivor. replace_existing: the loop closer's
+        SearchAndFuse(Scw) variant (see _merge_fuse_matches)."""
         M = len(jobs)
         P_pad = max(len(ids) for _, ids in jobs)
         projs = np.zeros((M, P_pad, 2), np.float32)
@@ -465,7 +476,8 @@ class LocalMapper:
         with st.stage("fuse_merge"):
             touched: dict = {}
             for j, (dkf, ids) in enumerate(jobs):
-                self._merge_fuse_matches(dkf, ids, idx2_all[j], touched)
+                self._merge_fuse_matches(dkf, ids, idx2_all[j], touched,
+                                         replace_existing)
             self._refresh_touched(touched)
 
     def _refresh_touched(self, touched):
@@ -476,9 +488,14 @@ class LocalMapper:
             self.arena.compute_distinctive_many(survivors)
             self.arena.update_normals_many(survivors, self.scale_factors)
 
-    def _merge_fuse_matches(self, dst_kf: KeyFrameRec, ids, idx2, touched):
+    def _merge_fuse_matches(self, dst_kf: KeyFrameRec, ids, idx2, touched,
+                            replace_existing=False):
         """Apply fuse decisions (reference Fuse :549-568): replace the
-        less-observed duplicate, or add the missing observation."""
+        less-observed duplicate, or add the missing observation. With
+        replace_existing the incoming point always wins: the loop closer's
+        SearchAndFuse(Scw) variant (reference Fuse(KF, Scw, ...) and
+        LoopClosing::SearchAndFuse :302-317, where corrected loop points
+        replace current-map duplicates unconditionally)."""
         for k in np.nonzero(idx2[:len(ids)] >= 0)[0]:
             mp = self.arena.mps.get(ids[k])
             if mp is None or mp.bad or dst_kf.id in mp.obs:
@@ -488,7 +505,7 @@ class LocalMapper:
             if existing >= 0:
                 other = self.arena.mps.get(existing)
                 if other is not None and not other.bad and other.id != mp.id:
-                    if len(other.obs) > len(mp.obs):
+                    if not replace_existing and len(other.obs) > len(mp.obs):
                         self.arena.replace_point(mp, other, refresh_desc=False)
                         touched[other.id] = other
                         touched.pop(mp.id, None)

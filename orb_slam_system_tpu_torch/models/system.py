@@ -7,12 +7,15 @@ results are the same every run. Place recognition (vocabulary + keyframe
 database) serves relocalization and the reference-keyframe search: the
 vocabulary is loaded from `vocabulary_path` (the reference's ORBvoc text
 format) or, without one, self-trained from the map's keyframes once there
-are five, as the JAX System does. Trajectory export in the reference's
+are five, as the JAX System does. Loop closing runs on each keyframe the
+mapper processed (models/loop_closing.py); its global BA solves on a side
+thread unless `sync_gba` is set, and a finished solve is applied after the
+next frame's mapping, or at shutdown. Trajectory export in the reference's
 TUM, keyframe-TUM and KITTI formats.
 
-Not in this port yet: stereo and RGB-D tracking, localization mode, loop
-closing, the async mapper, the streaming and pipelined modes, the viewer,
-map save/load.
+Not in this port yet: stereo and RGB-D tracking, localization mode, the
+async mapper, the streaming and pipelined modes, the viewer, map
+save/load.
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ from orb_slam_system_tpu_torch.config import (Sensor, SlamConfig,
 from orb_slam_system_tpu_torch.dataio import trajectory as traj_io
 from orb_slam_system_tpu_torch.mapping.arena import MapArena
 from orb_slam_system_tpu_torch.models.local_mapping import LocalMapper
+from orb_slam_system_tpu_torch.models.loop_closing import LoopCloser
 from orb_slam_system_tpu_torch.models.place_recognition import PlaceRecognition
 from orb_slam_system_tpu_torch.models.tracking import Tracker
 from orb_slam_system_tpu_torch.utils.metrics import Telemetry
@@ -38,7 +42,8 @@ from orb_slam_system_tpu_torch.vocab.vocabulary import Vocabulary
 class System:
     def __init__(self, settings: Union[str, SlamConfig],
                  sensor: Sensor = Sensor.MONOCULAR, device="cuda",
-                 vocabulary_path: Optional[str] = None):
+                 vocabulary_path: Optional[str] = None,
+                 sync_gba: bool = False):
         set_f32_policy()
         self.sensor = Sensor(sensor)
         if self.sensor != Sensor.MONOCULAR:
@@ -53,11 +58,16 @@ class System:
         self.arena.erase_hooks.append(self.place_rec.on_erase_keyframe)
         self.local_mapper = LocalMapper(self.cfg, self.arena, device,
                                         place_rec=self.place_rec)
+        self.loop_closer = LoopCloser(self.cfg, self.arena, self.place_rec,
+                                      self.local_mapper, device,
+                                      sync_gba=sync_gba)
+        self.local_mapper.loop_closer = self.loop_closer
         self.tracker = Tracker(self.cfg, self.arena, self.local_mapper, device,
                                place_rec=self.place_rec)
         self._timings: list[float] = []
-        # Per-frame records: state, tracked points, map size, track_ms,
-        # mapping_ms (host clock; both end in a device fetch).
+        # Per-frame records: state, tracked points, map size, loops closed,
+        # global BAs applied, track_ms, mapping_ms (host clock; both end in
+        # a device fetch).
         self.telemetry = Telemetry()
 
     def track_monocular(self, img: np.ndarray, timestamp: float):
@@ -69,6 +79,7 @@ class System:
         Tcw = self.tracker.grab_monocular(img, timestamp)
         t1 = time.perf_counter()
         self.local_mapper.process_pending()
+        self.loop_closer.poll_gba()
         t2 = time.perf_counter()
         self._timings.append(t2 - t0)
         self.telemetry.emit(
@@ -76,6 +87,8 @@ class System:
             n_inliers=self.tracker.n_inliers,
             n_tracked=len(self.get_tracked_map_points()),
             n_kfs=self.arena.n_keyframes(), n_mps=self.arena.n_points(),
+            loops=self.loop_closer.n_loops_closed,
+            gba_applied=self.loop_closer.n_gba_applied,
             track_ms=(t1 - t0) * 1e3, mapping_ms=(t2 - t1) * 1e3)
         return Tcw
 
@@ -85,8 +98,11 @@ class System:
         self.tracker.reset()
 
     def shutdown(self):
-        """Reference Shutdown: drain the mapping queue."""
+        """Reference Shutdown: drain the mapping queue, wait for a global
+        BA in flight and apply it."""
         self.local_mapper.process_pending()
+        self.loop_closer.gba.join()
+        self.loop_closer.poll_gba()
 
     Reset = reset
     Shutdown = shutdown

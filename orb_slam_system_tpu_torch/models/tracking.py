@@ -16,11 +16,15 @@ them in candidate order: pose LM, projection top-up, pose LM with the
 50-inlier gate. The reference-keyframe search uses the frame's and the
 keyframe's real vocabulary nodes once place recognition is ready.
 
+The pose-epoch contract (models/loop_closing.py's docstring): a frame
+records the map's pose epoch when it starts, and _store_trajectory refuses
+to store a relative pose after a map-wide pose rewrite landed inside the
+frame (counted in epoch_violations, then raised). With mapping and loop
+closing synchronous they run after the frame, so the count stays 0; the
+check guards the contract.
+
 Not in this port yet: the pipelined chain mode, localization mode (and
-with it the JAX tracker's temporary VO points), stereo and RGB-D. With
-mapping synchronous and no loop closer, no map-wide pose rewrite can land
-inside a frame, so the JAX package's correction lock and pose-epoch
-invariant have nothing to guard here.
+with it the JAX tracker's temporary VO points), stereo and RGB-D.
 
 Two plain functions from the first slice stay beside the Tracker:
 
@@ -256,6 +260,9 @@ class Tracker(MonoInitAndKeyframes):
         # Relocalization funnel: attempts, no_candidates, no_viable_pnp,
         # all_candidates_failed, ok.
         self.reloc_stats = Counter()
+        # arena.pose_epoch when the current frame started.
+        self._frame_epoch = arena.pose_epoch
+        self.epoch_violations = 0
 
     def _tensor(self, a) -> torch.Tensor:
         return to_device(a, self.device)
@@ -278,6 +285,7 @@ class Tracker(MonoInitAndKeyframes):
         return builder.build(img, timestamp)
 
     def track(self):
+        self._frame_epoch = self.arena.pose_epoch
         if self.state == TrackingState.NO_IMAGES_YET:
             self.state = TrackingState.NOT_INITIALIZED
         if self.state == TrackingState.NOT_INITIALIZED:
@@ -849,10 +857,19 @@ class Tracker(MonoInitAndKeyframes):
                     e.Tcr.copy(), e.ref_kf_id, cur.timestamp if cur else 0.0,
                     True))
             return
-        ref = self.arena.kfs.get(cur.ref_kf_id)
+        # A culled reference resolves through the spanning tree, as the
+        # trajectory export does (the JAX tracker drops the frame there).
+        T_extra, ref = _resolve_ref_pose(self.arena, cur.ref_kf_id)
         if ref is None:
             return
-        Tcr = (cur.Tcw @ np.linalg.inv(ref.Tcw)).astype(np.float32)
+        if self._frame_epoch != self.arena.pose_epoch:
+            self.epoch_violations += 1
+            raise RuntimeError(
+                f"pose_epoch moved from {self._frame_epoch} to "
+                f"{self.arena.pose_epoch} inside frame {cur.id}: a map-wide "
+                f"pose rewrite landed inside the frame (loop_closing.py "
+                f"docstring); its relative pose would be stale")
+        Tcr = (cur.Tcw @ np.linalg.inv(T_extra @ ref.Tcw)).astype(np.float32)
         cur.Tcr_ref = Tcr
         self.trajectory.append(TrajectoryEntry(
             Tcr, cur.ref_kf_id, cur.timestamp, False))

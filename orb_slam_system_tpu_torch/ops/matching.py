@@ -23,6 +23,8 @@ from orb_slam_system_tpu_torch.ops.hamming import distance_matrix
 
 TH_HIGH = 100
 TH_LOW = 50
+LOOP_NN_RATIO = 0.75   # reference ComputeSim3's ORBmatcher(0.75, true)
+MIN_NODE_MATCHES = 20  # fewer node-constrained matches take the retry
 HISTO_LENGTH = 30
 
 _BIG = 1 << 20
@@ -221,21 +223,82 @@ def search_by_projection_set_batch(proj_xy, radius, pred_level, pt_valid,
                                     already_found2, max_dist=TH_LOW).idx2
 
 
+def _take(a: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """a[..., idx] along the last axis, a's leading axes broadcast to
+    idx's."""
+    return a.expand(idx.shape[:-1] + a.shape[-1:]).gather(-1, idx)
+
+
 def search_by_node_id(desc1, valid1, ang1, node1, desc2, valid2, ang2, node2,
                       nn_ratio: float = 0.7):
     """BoW-node constrained matching (reference SearchByBoW): candidates
     under the same vocabulary node (-1 = none), ratio test, TH_LOW,
-    one-to-one, rotation histogram. Set 1 may carry leading axes (set 2
-    broadcasts). Returns MatchResult over set 1."""
+    one-to-one, rotation histogram. Either set may carry leading axes (the
+    other broadcasts). Returns MatchResult over set 1."""
     D = distance_matrix(desc1, desc2)
-    mask = (valid1[..., :, None] & valid2[None, :]
+    mask = (valid1[..., :, None] & valid2[..., None, :]
             & (node1[..., :, None] >= 0)
-            & (node1[..., :, None] == node2[None, :]))
+            & (node1[..., :, None] == node2[..., None, :]))
     best_j, best_d, second_d = _masked_best2(D, mask)
     matched = ((best_d <= TH_LOW)
                & (best_d.to(torch.float32) < nn_ratio * second_d.to(torch.float32))
                & valid1)
-    matched = _dedupe_keep_best(best_j, best_d, matched, desc2.shape[0])
-    matched = rotation_consistency(ang1, ang2[best_j], matched)
+    matched = _dedupe_keep_best(best_j, best_d, matched, desc2.shape[-2])
+    matched = rotation_consistency(ang1, _take(ang2, best_j), matched)
     return MatchResult(_no_match(matched, best_j), best_d)
 
+
+def search_by_node_id_retry_batch(desc1, valid1, ang1, node1,
+                                  desc2, valid2, ang2, node2):
+    """SearchByBoW(KF, KF) against C candidate keyframes (set-2 arguments
+    with a leading [C] axis; set 1 broadcasts) at ratio LOOP_NN_RATIO, with
+    the unconstrained retry in the same call: a candidate whose
+    node-constrained pass yields fewer than MIN_NODE_MATCHES takes the dense
+    unconstrained match instead (the node constraint exists in the reference
+    for speed, and a shallow self-trained vocabulary under-populates nodes).
+    Returns idx2 [C, N1]."""
+    rc = search_by_node_id(desc1, valid1, ang1, node1, desc2, valid2, ang2,
+                           node2, LOOP_NN_RATIO).idx2
+    ru = search_by_node_id(desc1, valid1, ang1, torch.zeros_like(node1),
+                           desc2, valid2, ang2, torch.zeros_like(node2),
+                           LOOP_NN_RATIO).idx2
+    enough = (rc >= 0).sum(-1, keepdim=True) >= MIN_NODE_MATCHES
+    return torch.where(enough, rc, ru)
+
+
+def _best_in_window(D, proj, rad, lvl, ok, xy, valid, octv):
+    """Best column per row under the Sim3 projection window: column j is a
+    candidate for row i iff |xy_j - proj_i| <= rad_i on both axes and
+    oct_j in [lvl_i - 1, lvl_i]. Returns (best_j, found bool[N])."""
+    dx = (xy[None, :, 0] - proj[:, None, 0]).abs()
+    dy = (xy[None, :, 1] - proj[:, None, 1]).abs()
+    in_window = (dx <= rad[:, None]) & (dy <= rad[:, None])
+    lev_ok = (octv[None, :] >= lvl[:, None] - 1) & (octv[None, :] <= lvl[:, None])
+    mask = ok[:, None] & valid[None, :] & in_window & lev_ok
+    best_j, best_d, _ = _masked_best2(D, mask)
+    return best_j, (best_d <= TH_HIGH) & ok
+
+
+def search_by_sim3(desc_mp1, proj_1in2, rad1, lvl1, ok1,
+                   desc_mp2, proj_2in1, rad2, lvl2, ok2,
+                   desc1, xy1, valid1, oct1, desc2, xy2, valid2, oct2):
+    """Mutual Sim3-guided re-search between two keyframes (upstream
+    ORBmatcher::SearchBySim3). Each keyframe's map points (slot-aligned;
+    desc_mp* their distinctive descriptors) are projected into the other
+    keyframe with the candidate Sim3 (geometry precomputed by the caller:
+    projections, radii, predicted levels, validity ok*); the best Hamming
+    match inside the radius window and the octave band [lvl - 1, lvl]
+    passes TH_HIGH (no ratio test), and only mutual best pairs survive.
+    Returns idx2 [N1]: the KF2 slot mutually matched to each KF1 slot (-1
+    none)."""
+    match1, found1 = _best_in_window(distance_matrix(desc_mp1, desc2),
+                                     proj_1in2, rad1, lvl1, ok1, xy2, valid2,
+                                     oct2)
+    match2, found2 = _best_in_window(distance_matrix(desc_mp2, desc1),
+                                     proj_2in1, rad2, lvl2, ok2, xy1, valid1,
+                                     oct1)
+    back = torch.where(found2[match1], match2[match1],
+                       torch.full_like(match1, -1))
+    mutual = found1 & (back == torch.arange(match1.shape[0],
+                                            device=match1.device))
+    return _no_match(mutual, match1)

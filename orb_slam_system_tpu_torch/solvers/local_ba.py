@@ -21,6 +21,10 @@ edges with information invSigma2 * I).
     chosen on the device (no host sync inside); the reference's two-stage
     local schedule is 5 robust iterations, the chi2 > 5.991 edges dropped,
     10 more (`local_bundle_adjustment`).
+  * `bundle_adjust_cg` solves the reduced camera system by preconditioned
+    CG over per-edge blocks instead of the dense Schur complement: the
+    global BA after a loop closure takes it once the map outgrows the dense
+    solve (models/loop_closing.GBA_DENSE_MAX_CAMS).
 """
 
 from __future__ import annotations
@@ -201,6 +205,109 @@ def bundle_adjust(prob: BAProblem, fx, fy, cx, cy, n_iters: int = 10,
         # Back-substitute the points: dp = Hpp^-1 (-gp - A^T dc).
         Atdc = torch.einsum("cpij,ci->pj", A_cp, dc)
         dp = torch.einsum("pjk,pk->pj", Hpp_inv, -gp - Atdc)
+        dp = torch.where(pt_ok[:, None], dp, torch.zeros_like(dp))
+        improved = cost_at(Tcw, X, dc, dp) < cost_at(Tcw, X, zero_xi, zero_dx)
+        Tcw = torch.where(improved, se3_exp(dc) @ Tcw, Tcw)
+        X = torch.where(improved, X + dp, X)
+        lam = torch.where(improved, lam * 0.5, lam * 4.0).clamp(1e-10, 1e8)
+    return Tcw, X
+
+
+def bundle_adjust_cg(prob: BAProblem, fx, fy, cx, cy, n_iters: int = 10,
+                     cg_iters: int = 40):
+    """LM bundle adjustment whose reduced camera system is solved by
+    preconditioned CG, with the matvec assembled from per-edge blocks (the
+    dense [C,P,6,3] cross blocks of `bundle_adjust` are never formed): O(E)
+    per CG iteration, for global BA over large maps. Huber-robust, as
+    bundle_adjust by default; returns (Tcw_new, points_new)."""
+    C = prob.Tcw.shape[0]
+    P = prob.points.shape[0]
+    dev = prob.points.device
+    f32 = prob.points.dtype
+    fm = ((~prob.cam_fixed) & prob.cam_valid).to(f32)[:, None]
+    eye6 = torch.eye(6, dtype=f32, device=dev)
+    eye3 = torch.eye(3, dtype=f32, device=dev)
+    zero_xi = torch.zeros((C, 6), dtype=f32, device=dev)
+    zero_dx = torch.zeros((P, 3), dtype=f32, device=dev)
+
+    def cost_at(Tcw, X, xi_all, dX):
+        p = prob._replace(Tcw=Tcw, points=X)
+        e, _, _, z, is_st = _edge_residuals(xi_all, dX, p, fx, fy, cx, cy)
+        return _robust_cost(e, prob.e_inv_sigma2, prob.e_valid & (z > 0),
+                            True, is_st)[0]
+
+    def bmv(M, x):
+        return (M @ x[..., None])[..., 0]
+
+    Tcw = prob.Tcw.to(f32)
+    X = prob.points.to(f32)
+    lam = torch.tensor(1e-4, dtype=f32, device=dev)
+    for _ in range(n_iters):
+        p = prob._replace(Tcw=Tcw, points=X)
+        e, Jc, Jp, z, is_st = _edge_residuals(zero_xi, zero_dx, p,
+                                              fx, fy, cx, cy)
+        chi2 = (e * e).sum(1) * prob.e_inv_sigma2
+        delta_e = torch.where(is_st, HUBER_DELTA_STEREO, HUBER_DELTA)
+        w_h = torch.clamp_max(delta_e / torch.sqrt(chi2.clamp_min(1e-12)), 1.0)
+        active = prob.e_valid & (z > 0)
+        w = torch.where(active, w_h * prob.e_inv_sigma2, torch.zeros_like(w_h))
+        sw = torch.sqrt(w)
+        Jc_w = Jc * sw[:, None, None]                    # weight-absorbed
+        Jp_w = Jp * sw[:, None, None]
+        e_w = e * sw[:, None]
+        JcT, JpT = Jc_w.transpose(1, 2), Jp_w.transpose(1, 2)
+        Hcc = _seg_sum(prob.e_cam, JcT @ Jc_w, C)
+        Hpp = _seg_sum(prob.e_pt, JpT @ Jp_w, P)
+        gc = _seg_sum(prob.e_cam, bmv(JcT, e_w), C)
+        gp = _seg_sum(prob.e_pt, bmv(JpT, e_w), P)
+        Hcc_d = Hcc + lam * eye6 * torch.diagonal(
+            Hcc, dim1=1, dim2=2).clamp_min(1e-6)[:, :, None]
+        Hpp_d = Hpp + lam * eye3 * torch.diagonal(
+            Hpp, dim1=1, dim2=2).clamp_min(1e-6)[:, :, None]
+        pt_ok = prob.pt_valid & (torch.diagonal(Hpp, dim1=1, dim2=2).sum(1) > 1e-9)
+        Hpp_inv = torch.where(pt_ok[:, None, None], _inv3x3(Hpp_d),
+                              torch.zeros_like(Hpp_d))
+
+        def A_t(x_c):
+            """A^T x: [C,6] -> [P,3] through the per-edge blocks."""
+            return _seg_sum(prob.e_pt, bmv(JpT, bmv(Jc_w, x_c[prob.e_cam])), P)
+
+        def A_(v_p):
+            """A v: [P,3] -> [C,6]."""
+            return _seg_sum(prob.e_cam, bmv(JcT, bmv(Jp_w, v_p[prob.e_pt])), C)
+
+        def schur_mv(x_c):
+            x_c = x_c * fm
+            y = bmv(Hcc_d, x_c) - A_(bmv(Hpp_inv, A_t(x_c)))
+            # Fixed cameras act as the identity (keeps PCG well posed).
+            return y * fm + x_c * (1.0 - fm)
+
+        rhs = (-gc + A_(bmv(Hpp_inv, gp))) * fm
+        Minv = torch.linalg.inv(Hcc_d + 1e-6 * eye6)
+
+        def precond(x):
+            return bmv(Minv, x) * fm
+
+        x = torch.zeros((C, 6), dtype=f32, device=dev)
+        r_cg = rhs
+        zv = precond(r_cg)
+        pv = zv
+        rz = (r_cg * zv).sum()
+        for _ in range(cg_iters):
+            Ap = schur_mv(pv)
+            denom = (pv * Ap).sum()
+            alpha = rz / torch.where(denom.abs() < 1e-12,
+                                     torch.full_like(denom, 1e-12), denom)
+            x = x + alpha * pv
+            r_cg = r_cg - alpha * Ap
+            z_new = precond(r_cg)
+            rz_new = (r_cg * z_new).sum()
+            beta = rz_new / torch.where(rz.abs() < 1e-12,
+                                        torch.full_like(rz, 1e-12), rz)
+            pv = z_new + beta * pv
+            rz = rz_new
+        dc = x * fm
+        dp = bmv(Hpp_inv, -gp - A_t(dc))
         dp = torch.where(pt_ok[:, None], dp, torch.zeros_like(dp))
         improved = cost_at(Tcw, X, dc, dp) < cost_at(Tcw, X, zero_xi, zero_dx)
         Tcw = torch.where(improved, se3_exp(dc) @ Tcw, Tcw)

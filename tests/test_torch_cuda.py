@@ -1,5 +1,6 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card,
-and the relocalization path's torch code on the card against the CPU.
+and the relocalization and loop-closing paths' torch code on the card
+against the CPU, with one loop closed on the card.
 
 Marked `cuda`: they skip without a GPU (a CUDA kernel has no CPU mode).
 Run them on a machine with an NVIDIA GPU and nvcc (--noconftest: the
@@ -313,3 +314,165 @@ def test_forced_relocalization_640x480(dev):
     assert slam.track_monocular(img, 100.0) is not None
     assert slam.get_tracking_state() == TrackingState.OK
     assert slam.tracker.reloc_stats["ok"] == 1
+
+
+# ---- loop closing: the solvers on the card against the CPU ------------------------
+
+
+def _to(dev, *arrays):
+    return [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in arrays]
+
+
+def _rot_deg(Ra, Rb):
+    M = np.asarray(Ra, np.float64) @ np.asarray(Rb, np.float64).T
+    s = np.linalg.norm([M[2, 1] - M[1, 2], M[0, 2] - M[2, 0], M[1, 0] - M[0, 1]])
+    return float(np.degrees(np.arctan2(0.5 * s, 0.5 * (np.trace(M) - 1.0))))
+
+
+def _sim3_pairs(rng, C=3, N=96, n_out=20):
+    """C matched point sets related by a Sim3 each, n_out scrambled rows."""
+    from orb_slam_system_tpu_torch.utils.lie import so3_exp
+    out = []
+    for c in range(C):
+        P2 = rng.uniform(-2, 2, size=(N, 3)).astype(np.float32)
+        P2[:, 2] = rng.uniform(4, 8, size=N)
+        R = so3_exp(torch.from_numpy((rng.normal(size=3) * 0.1).astype(np.float32))).numpy()
+        P1 = (1.2 + 0.1 * c) * (P2 @ R.T) + np.array([0.4, -0.2, 0.3], np.float32)
+        uv1 = (P1[:, :2] / P1[:, 2:3] * 500.0 + [320.0, 240.0]).astype(np.float32)
+        uv2 = (P2[:, :2] / P2[:, 2:3] * 500.0 + [320.0, 240.0]).astype(np.float32)
+        idx = rng.choice(N, size=n_out, replace=False)
+        P2[idx] = P2[idx][::-1] + rng.normal(size=(n_out, 3)).astype(np.float32)
+        out.append((P1.astype(np.float32), P2, uv1, uv2))
+    return [np.stack([o[k] for o in out]) for k in range(4)]
+
+
+def test_sim3_ransac_and_optimize_sim3_match_cpu(dev, rng):
+    """sim3_ransac_batch (3 pairs) and optimize_sim3 on the card against the
+    CPU: ok and inlier masks equal, s and t within 1e-3, R within 0.05 deg
+    (tests/test_torch_lie_sim3.py's tolerances against JAX)."""
+    from orb_slam_system_tpu_torch.solvers import pose_graph, sim3
+    P1, P2, uv1, uv2 = _sim3_pairs(rng)
+    C, N = P1.shape[:2]
+    m = np.full((C, N), 9.21, np.float32)
+    valid = np.ones((C, N), bool)
+    sets = sim3.make_sim3_sample_sets(128, 300, 0).astype(np.int64)
+    cam = (500.0, 500.0, 320.0, 240.0)
+    args = (P1, P2, uv1, uv2, m, m, valid, sets)
+    cpu = sim3.sim3_ransac_batch(*_to("cpu", *args), *cam).numpy()
+    gpu = sim3.sim3_ransac_batch(*_to(dev, *args), *cam).cpu().numpy()
+    assert cpu[:, 0].all()
+    np.testing.assert_array_equal(gpu[:, 0], cpu[:, 0])
+    np.testing.assert_array_equal(gpu[:, 14:], cpu[:, 14:])
+    np.testing.assert_allclose(gpu[:, [1, 11, 12, 13]], cpu[:, [1, 11, 12, 13]],
+                               atol=1e-3)
+    for c in range(C):
+        assert _rot_deg(gpu[c, 2:11].reshape(3, 3), cpu[c, 2:11].reshape(3, 3)) < 0.05
+    one = np.ones(N, np.float32)
+    oargs = (np.float32(cpu[0, 1] * 1.02), cpu[0, 2:11].reshape(3, 3).copy(),
+             cpu[0, 11:14] + 0.01, P1[0], P2[0], uv1[0], uv2[0], one, one,
+             valid[0])
+    n_c, s_c, R_c, t_c, inl_c = pose_graph.optimize_sim3(*_to("cpu", *oargs), *cam)
+    n_g, s_g, R_g, t_g, inl_g = (x.cpu() for x in pose_graph.optimize_sim3(
+        *_to(dev, *oargs), *cam))
+    assert int(n_g) == int(n_c) >= N - 20
+    assert torch.equal(inl_g, inl_c)
+    assert abs(float(s_g) - float(s_c)) < 1e-3
+    assert float((t_g - t_c).abs().max()) < 1e-3
+    assert _rot_deg(R_g.numpy(), R_c.numpy()) < 0.05
+
+
+def test_essential_graph_matches_cpu(dev, rng):
+    """optimize_essential_graph on a drifted 30-keyframe circle with
+    odometry edges and one loop edge: card against CPU within 1e-3 / 0.05
+    deg."""
+    from orb_slam_system_tpu_torch.solvers import pose_graph
+    from orb_slam_system_tpu_torch.utils.lie import se3_exp
+    K = 30
+
+    def pose(k):
+        a = 2 * np.pi * k / K
+        return se3_exp(torch.tensor([0.5 * np.sin(a), 0.0, 0.5 * (1 - np.cos(a)),
+                                     0.0, a, 0.0], dtype=torch.float32)).numpy()
+    T_true = [pose(k) for k in range(K)]
+    T_est = [T_true[0]]
+    for k in range(1, K):
+        noise = se3_exp(torch.from_numpy((rng.normal(size=6) * 0.02).astype(np.float32)))
+        T_est.append(noise.numpy() @ T_true[k] @ np.linalg.inv(T_true[k - 1]) @ T_est[-1])
+    edges = [(k, k + 1, T_est[k], T_est[k + 1]) for k in range(K - 1)]
+    edges.append((K - 1, 0, T_true[K - 1], T_true[0]))
+    rel = [Tj @ np.linalg.inv(Ti) for _, _, Ti, Tj in edges]
+    fixed = np.arange(K) == 0
+    args = (np.stack([T[:3, :3] for T in T_est]).astype(np.float32),
+            np.stack([T[:3, 3] for T in T_est]).astype(np.float32),
+            np.ones(K, np.float32), fixed, np.ones(K, bool),
+            np.asarray([e[0] for e in edges], np.int64),
+            np.asarray([e[1] for e in edges], np.int64),
+            np.stack([r[:3, :3] for r in rel]).astype(np.float32),
+            np.stack([r[:3, 3] for r in rel]).astype(np.float32),
+            np.ones(len(edges), np.float32), np.ones(len(edges), bool))
+    Rc, tc, sc = pose_graph.optimize_essential_graph(*_to("cpu", *args))
+    Rg, tg, sg = (x.cpu() for x in pose_graph.optimize_essential_graph(*_to(dev, *args)))
+    assert float((tg - tc).abs().max()) < 1e-3
+    assert float((sg - sc).abs().max()) < 1e-3
+    assert max(_rot_deg(Rg[k].numpy(), Rc[k].numpy()) for k in range(K)) < 0.05
+
+
+def test_bundle_adjust_cg_matches_cpu(dev, rng):
+    """bundle_adjust_cg over 6 cameras x 200 points: card against CPU,
+    poses within 1e-4, points within 1e-4 of their coordinate (at least
+    1; float32 sums in another order, points up to 9 units deep)."""
+    from orb_slam_system_tpu_torch.solvers.local_ba import (BAProblem,
+                                                           bundle_adjust_cg)
+    from orb_slam_system_tpu_torch.utils.lie import se3_exp
+    C, P = 6, 200
+    X = rng.uniform(-3, 3, size=(P, 3)).astype(np.float32)
+    X[:, 2] = rng.uniform(5, 9, size=P)
+    Tcw = se3_exp(torch.tensor([[0.3 * c, 0, 0, 0, 0.01 * c, 0] for c in range(C)],
+                               dtype=torch.float32)).numpy()
+    e_cam = np.repeat(np.arange(C), P)
+    e_pt = np.tile(np.arange(P), C)
+    Xc = np.einsum("cij,pj->cpi", Tcw[:, :3, :3], X) + Tcw[:, None, :3, 3]
+    uv = (Xc[..., :2] / Xc[..., 2:] * 500.0 + [320.0, 240.0]).reshape(-1, 2)
+    uv = (uv + rng.normal(size=uv.shape) * 0.3).astype(np.float32)
+    T0 = Tcw.copy()
+    T0[1:] = se3_exp(torch.from_numpy((rng.normal(size=(C - 1, 6)) * 0.02)
+                                      .astype(np.float32))).numpy() @ Tcw[1:]
+    X0 = (X + rng.normal(size=X.shape) * 0.05).astype(np.float32)
+    E = len(e_cam)
+
+    def prob(d):
+        a = _to(d, T0, np.arange(C) == 0, np.ones(C, bool), X0, np.ones(P, bool),
+                e_cam, e_pt, uv, np.ones(E, np.float32), np.ones(E, bool))
+        return BAProblem(*a)
+    cam = (500.0, 500.0, 320.0, 240.0)
+    Tc, Xc_ = bundle_adjust_cg(prob("cpu"), *cam, n_iters=4, cg_iters=30)
+    Tg, Xg = (x.cpu() for x in bundle_adjust_cg(prob(dev), *cam, n_iters=4,
+                                                 cg_iters=30))
+    assert float((Tg - Tc).abs().max()) < 1e-4
+    assert float(((Xg - Xc_).abs() / Xc_.abs().clamp_min(1.0)).max()) < 1e-4
+
+
+def test_frame_builder_takes_any_layout(dev):
+    """A column-major image (what np.apply_along_axis over axis 0 returns)
+    builds the same frame as its row-major copy."""
+    from orb_slam_system_tpu_torch.drivers import mono_synthetic
+    from orb_slam_system_tpu_torch.models.frame import FrameBuilder
+    cfg = mono_synthetic.make_config(320, 240, 400)
+    img = mono_synthetic.render_sequence(cfg, 2)[0][1]
+    fb = FrameBuilder(cfg, dev)
+    got = fb.build(np.asfortranarray(img), 0.0).packed
+    want = fb.build(np.ascontiguousarray(img), 0.0).packed
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def test_loop_closes_on_the_card_320x240(dev):
+    """The 90-frame degraded circle at 320x240 through drivers/loop_synthetic
+    on the card closes its loop (tests/test_e2e_loop.py's bars: >= 1 loop,
+    >= 80 of 90 frames tracked, ATE < 10 cm)."""
+    from orb_slam_system_tpu_torch.drivers import loop_synthetic
+    slam, rmse, n_tracked = loop_synthetic.run(90, device="cuda", sync_gba=True,
+                                               verbose=False)
+    assert slam.loop_closer.n_loops_closed >= 1
+    assert n_tracked >= 80
+    assert rmse < 0.10
+    assert slam.tracker.epoch_violations == 0

@@ -14,7 +14,9 @@ import orb_slam_system_tpu_torch as pkg
 import chip_smoke, kernel_times
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for new in ("vocab.vocabulary", "mapping.keyframe_db",
-            "models.place_recognition", "solvers.pnp"):
+            "models.place_recognition", "solvers.pnp", "solvers.sim3",
+            "solvers.pose_graph", "models.loop_closing",
+            "drivers.loop_synthetic"):
     assert pkg.__name__ + "." + new in names, new
 for n in names:
     importlib.import_module(n)
@@ -64,9 +66,10 @@ def _run(code):
 
 def test_port_never_imports_jax():
     """Every module of the port (walked, so new ones are covered; the
-    place-recognition and relocalization modules named), chip_smoke.py and
-    kernel_times.py import without jax or the JAX package."""
-    assert int(_run(_IMPORT_ALL).split()[-1]) >= 44
+    place-recognition, relocalization and loop-closing modules named),
+    chip_smoke.py and kernel_times.py import without jax or the JAX
+    package."""
+    assert int(_run(_IMPORT_ALL).split()[-1]) >= 48
 
 
 def test_entry_points_default_to_the_card():
@@ -75,14 +78,16 @@ def test_entry_points_default_to_the_card():
 
     from orb_slam_system_tpu_torch.models.frame import FrameBuilder
     from orb_slam_system_tpu_torch.models.local_mapping import LocalMapper
+    from orb_slam_system_tpu_torch.models.loop_closing import LoopCloser
     from orb_slam_system_tpu_torch.models.place_recognition import (
         PlaceRecognition)
     from orb_slam_system_tpu_torch.models.system import System
     from orb_slam_system_tpu_torch.models.track_device import TrackPrograms
     from orb_slam_system_tpu_torch.models.tracking import Tracker
-    from orb_slam_system_tpu_torch.drivers.mono_synthetic import run
+    from orb_slam_system_tpu_torch.drivers import loop_synthetic, mono_synthetic
     for entry in (FrameBuilder, TrackPrograms, System, Tracker, LocalMapper,
-                  PlaceRecognition, run):
+                  PlaceRecognition, LoopCloser, mono_synthetic.run,
+                  loop_synthetic.run):
         assert inspect.signature(entry).parameters["device"].default == "cuda", entry
 
 
