@@ -66,7 +66,30 @@ Phases, each of which fails the run (exit code != 0) when it fails:
      sim3_ransac_batch, optimize_sim3, optimize_essential_graph and one
      global-BA chunk, each re-run on the inputs the run gave it, and the
      global-BA solver the run did not take (dense Schur or PCG) on the
-     same chunk.
+     same chunk;
+  8. stereo at KITTI width: the KITTI 00-02 settings (1241x376, bf 386.1448,
+     2000 features in 2048 slots) loaded for Sensor.STEREO,
+     System.track_stereo over 60 rectified pairs of phase 5's orbit at
+     texture scale 440 through drivers/stereo_synthetic.run. Check
+     tests/test_e2e_stereo.py's bars (initialized at frame 0, OK at the end,
+     SE3-aligned ATE < 12 cm, metric span within 15%, > 150 keyframe-0
+     features matched with 0 < disparity < fx) plus >= 90% of the frames
+     tracked, and kernel A and kernel B's describe mode launched once per
+     pair (batch 2 is one launch). Hold both kernels at the pair's batch-2
+     shape against their plain versions and time them there (device, call
+     and plain ms, bound); print stereo_match's wall, call and device ms
+     and kernel count on the run's inputs, and the track and mapping
+     medians;
+  9. RGB-D and localization mode: phase 5's 640x480 camera with bf 40,
+     DepthMapFactor 5000 and th_depth 40 * 40 / 520 m for Sensor.RGBD,
+     System.track_rgbd over 60 frames of the orbit with the analytic depth
+     x 5000 (drivers/rgbd_synthetic.run), then localization mode with the
+     last frame's map associations wiped for 8 more frames. Check
+     tests/test_e2e_rgbd.py's bars (>= 58 of 60 tracked, ATE < 5 cm, SE3-
+     aligned here, span within 10%, > 200 map points, keyframe 0's depths
+     inside (1, 10) m), that VO points carried the first map-less frame and
+     the last one is OK, and kernel A and B's describe mode launched once
+     per frame.
 The second-to-last line is a JSON object with each kernel's launches (on the
 path that runs it, and in every phase), error, times and bound; the last
 line is {"ok": true, "device": {...}}. Without CUDA, or without the package
@@ -100,6 +123,14 @@ MAX_ATE_M = 0.03            # tests/test_e2e_mono.py bar
 LOOP_FRAMES = 90            # tests/test_e2e_loop.py's short circle
 MIN_LOOP_TRACKED = 80       # ... and its bars
 MAX_LOOP_ATE_M = 0.10
+STEREO_FRAMES = 60          # phase 8: KITTI-width stereo pairs
+MAX_STEREO_ATE_M = 0.12     # tests/test_e2e_stereo.py's bars
+MAX_SPAN_ERR_STEREO = 0.15
+RGBD_FRAMES = 60            # phase 9
+LOCALIZE_FRAMES = 8         # ... then in localization mode
+MAX_RGBD_ATE_M = 0.05       # tests/test_e2e_rgbd.py's bars
+MAX_SPAN_ERR_RGBD = 0.10
+TEX_SCALE = 440.0           # phase 5's texture scale
 # H100 SXM peaks (NVIDIA data sheet, dense): device memory bytes/s and
 # float32 operations/s outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
@@ -197,13 +228,18 @@ def _stage_window(torch, fn, reps: int):
     return counts, t_us, spins
 
 
-def stage_device_ms(torch, fn, reps: int = 20):
+def stage_device_ms(torch, fn, reps: int = 20, required: bool = True):
     """(device ms per call of fn summed over every kernel it launches, the
     kernels per call). One call's kernels, by name, come from single-call
-    windows, two of which must agree; the time from a window of `reps`
-    calls that holds exactly `reps` times those records. The profiler can
-    drop records, so each kind of window is profiled again, up to 5; the
-    run fails if none qualifies."""
+    windows, two of which agree; the time from a window of `reps` calls
+    that holds exactly `reps` times those records. The profiler can drop
+    records (never add them), so each kind of window is profiled again, up
+    to 5, and where no two single-call windows agree each kernel's largest
+    count over them stands for one call. If no window of `reps` calls
+    qualifies, the run fails, or, where the stage's time is not `required`
+    (the 30,000-115,000-kernel solves of phase 7, whose windows lose
+    records most, and stereo_match), the device time is reported as not
+    measured (None)."""
     fn()
     torch.cuda.synchronize()
     seen = []
@@ -213,8 +249,11 @@ def stage_device_ms(torch, fn, reps: int = 20):
             break
         seen.append(one)
     else:
-        fail(f"no two single-call profiler windows of the stage agree: "
-             f"{[sum(c.values()) for c in seen]} records")
+        one = {k: max(c.get(k, 0) for c in seen) for k in set().union(*seen)}
+        print(f"no two single-call profiler windows of the stage agree "
+              f"({[sum(c.values()) for c in seen]} records): one call taken "
+              f"as each kernel's largest count, {sum(one.values())} records",
+              flush=True)
     want = {k: reps * v for k, v in one.items()}
     for window in range(1, 6):
         counts, t_us, spins = _stage_window(torch, fn, reps)
@@ -231,8 +270,17 @@ def stage_device_ms(torch, fn, reps: int = 20):
               f"{sum(counts.values())} records, not {sum(want.values())}, "
               f"{spins} of {SPIN_LEAD} spin records; (records, wanted) of "
               f"the kernels off: {off}", flush=True)
-    fail(f"the profiler never showed {reps} times the {sum(one.values())} "
-         f"kernels of one call of the stage")
+    msg = (f"the profiler never showed {reps} times the {sum(one.values())} "
+           f"kernels of one call of the stage")
+    if required:
+        fail(msg)
+    print(f"{msg}: device time not measured", flush=True)
+    return None, sum(one.values())
+
+
+def ms_text(ms, fmt: str = ".3f") -> str:
+    """A measured ms, or "not measured" for None."""
+    return "not measured" if ms is None else format(ms, fmt) + " ms"
 
 
 def pose_error(T, T_gt):
@@ -278,6 +326,28 @@ def profile_device(torch, label: str, fn, wall_ms) -> None:
     print(f"{label}: {n} device kernels, {dev_ms:.3f} ms summed device "
           f"time (profiler), wall {wall_ms:.3f} ms, device idle share "
           f"{1.0 - dev_ms / wall_ms:.3f}", flush=True)
+
+
+def canvas_floats_read(torch, patches, canvas, xy) -> int:
+    """Canvas floats that a gather of kernels B and D must read: those inside
+    the union of the keypoints' clipped 43x43 windows. The rest of the
+    canvas is filler (each level padded to the widest, rows rounded up to 8)
+    and canvas that no keypoint of this frame reaches."""
+    Bc, Hc, Wc = canvas.shape
+    flat = patches.gather_flat_index(xy, 21, Hc, Wc)
+    return int(torch.zeros((Bc, Hc * Wc), dtype=torch.bool, device=canvas.device)
+               .scatter_(1, flat, True).sum())
+
+
+def describe_bound(n_read: int, xy, pb_side: int):
+    """Bound of kernel B's describe stage: the windows' canvas and the
+    centres read once; moments, angle and descriptor written once; the
+    first blur pass, the second at the 512 test points, the moments and per
+    rBRIEF test two bf16 roundings and a compare."""
+    n_kp = xy.shape[0] * xy.shape[1]
+    ops_pass1 = 2 * 7 * pb_side * 43
+    return bound_ms(4.0 * (n_read + xy.numel() + 11 * n_kp),
+                    n_kp * (ops_pass1 + 2 * 7 * 512 + 4 * 749) + 3.0 * 256 * n_kp)
 
 
 def orbvoc_shaped_tree(Vocabulary, k: int = 10, L: int = 6, seed: int = 0):
@@ -546,7 +616,7 @@ def loop_phase(torch, dev, kernels, loop_synthetic, loop_closing, sim3,
         f, a, kw = captured[name]
         fn = (lambda f=f, a=a, kw=kw: f(*a, **kw))
         call_ms = cuda_ms(torch, fn, reps=3)
-        d_ms, n_k = stage_device_ms(torch, fn, reps=3)
+        d_ms, n_k = stage_device_ms(torch, fn, reps=3, required=False)
         if name == "gba_chunk":
             label = (f"one global-BA chunk ({f.__name__}, "
                      f"{kw['n_iters']} LM iterations)")
@@ -558,10 +628,11 @@ def loop_phase(torch, dev, kernels, loop_synthetic, loop_closing, sim3,
                       if torch.is_tensor(x) and x.dim() >= 2][:2]
         solves[name] = dict(device_ms=d_ms, kernels=n_k, call_ms=call_ms,
                             shapes=shapes, solver=f.__name__)
+        idle = "not measured" if d_ms is None else f"{1.0 - d_ms / call_ms:.3f}"
         print(f"{label} on the run's inputs {shapes}: {n_k} device kernels, "
-              f"{d_ms:.3f} ms summed device time (profiler), call {call_ms:.3f} "
-              f"ms (CUDA events), device idle share "
-              f"{1.0 - d_ms / call_ms:.3f}; {card}", flush=True)
+              f"{ms_text(d_ms)} summed device time (profiler), call "
+              f"{call_ms:.3f} ms (CUDA events), device idle share {idle}; "
+              f"{card}", flush=True)
     # The global-BA solver the run did not take (GBA_DENSE_MAX_CAMS picks
     # dense Schur or PCG by keyframe count) on the same chunk, so the two
     # stand side by side at this map's size.
@@ -574,20 +645,242 @@ def loop_phase(torch, dev, kernels, loop_synthetic, loop_closing, sim3,
         fn = (lambda: dense(*a, n_iters=kw["n_iters"]))
     other = "bundle_adjust_cg" if f is dense else "bundle_adjust"
     call_ms = cuda_ms(torch, fn, reps=3)
-    d_ms, n_k = stage_device_ms(torch, fn, reps=3)
+    d_ms, n_k = stage_device_ms(torch, fn, reps=3, required=False)
     solves["gba_chunk_other_solver"] = dict(
         device_ms=d_ms, kernels=n_k, call_ms=call_ms,
         shapes=solves["gba_chunk"]["shapes"], solver=other)
     taken = solves["gba_chunk"]
     print(f"global-BA chunk by solver at {taken['shapes'][0][0]} keyframes "
           f"(GBA_DENSE_MAX_CAMS {loop_closing.GBA_DENSE_MAX_CAMS}): "
-          f"{taken['solver']} (taken) {taken['device_ms']:.3f} ms device / "
-          f"{taken['call_ms']:.3f} ms call, {other} {d_ms:.3f} ms device / "
+          f"{taken['solver']} (taken) {ms_text(taken['device_ms'])} device / "
+          f"{taken['call_ms']:.3f} ms call, {other} {ms_text(d_ms)} device / "
           f"{call_ms:.3f} ms call in {n_k} kernels; {card}", flush=True)
     return dict(last_loop=lc.last_loop, n_tracked=n_tracked, ate_cm=100 * ate,
                 keyframes=slam.arena.n_keyframes(), points=slam.arena.n_points(),
                 gba=gba_when, stats=dict(lc.stats), launches=launches,
                 wall_s=wall_s, stage_ms=stage_ms, solves=solves)
+
+
+def stereo_phase(torch, kernels, check_kernel_b, card) -> dict:
+    """Phase 8 (see the module docstring); returns its numbers."""
+    from orb_slam_system_tpu_torch.config import (Sensor, TrackingState,
+                                                  load_settings)
+    from orb_slam_system_tpu_torch.drivers import stereo_synthetic
+    from orb_slam_system_tpu_torch.models import frame as frame_mod
+    from orb_slam_system_tpu_torch.ops import fast, patches
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    cfg = load_settings(os.path.join(root, "examples", "settings",
+                                     "kitti00-02.yaml"), Sensor.STEREO)
+    cam = cfg.camera
+    captured = []
+    original = frame_mod.stereo_match
+
+    def spy(*a, **kw):
+        if not captured:
+            captured.append((a, kw))
+        return original(*a, **kw)
+
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    frame_mod.stereo_match = spy
+    t0 = time.perf_counter()
+    try:
+        slam, ate, span, span_gt = stereo_synthetic.run(
+            STEREO_FRAMES, None, device="cuda", verbose=True, cfg=cfg,
+            tex_scale=TEX_SCALE)
+    finally:
+        frame_mod.stereo_match = original
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    recs = slam.telemetry.records
+    n_ok = sum(r["state"] == int(TrackingState.OK) for r in recs)
+    kf0 = slam.arena.kfs.get(slam.arena.kf_origin_id)
+    ur = kf0.feats.u_right if kf0 is not None else np.zeros(0)
+    disp = kf0.feats.xy_und[ur >= 0, 0] - ur[ur >= 0] if kf0 is not None else ur
+    n_disp = int(((disp > 0) & (disp < cam.fx)).sum())
+    track_med = statistics.median(r["track_ms"] for r in recs)
+    map_med = statistics.median(r["mapping_ms"] for r in recs)
+    print(f"stereo: {STEREO_FRAMES} KITTI 00-02 pairs {cam.width}x{cam.height} "
+          f"(bf {cam.bf}, th_depth {cfg.th_depth:.3f} m) in {wall_s:.1f} s; "
+          f"initialized at frame {kf0.frame_id if kf0 else None}, {n_ok}/"
+          f"{STEREO_FRAMES} frames tracked, {slam.arena.n_keyframes()} "
+          f"keyframes, {slam.arena.n_points()} map points; ATE RMSE "
+          f"(SE3-aligned) {100 * ate:.3f} cm; metric span {span:.4f} m against "
+          f"{span_gt:.4f} m ({100 * (span - span_gt) / span_gt:+.2f}%); keyframe "
+          f"0: {int((ur >= 0).sum())} right matches, {n_disp} with 0 < "
+          f"disparity < fx, median disparity "
+          f"{float(np.median(disp)) if len(disp) else 0.0:.2f} px; track "
+          f"median {track_med:.3f} ms, mapping median {map_med:.3f} ms (host "
+          f"clock); launches {launches}; {card}", flush=True)
+    if kf0 is None or kf0.frame_id != 0:
+        fail("stereo: the map was not initialized at frame 0")
+    if slam.get_tracking_state() != TrackingState.OK:
+        fail(f"stereo ends {slam.get_tracking_state().name}, not OK")
+    if not ate < MAX_STEREO_ATE_M:
+        fail(f"stereo ATE {100 * ate:.3f} cm >= {100 * MAX_STEREO_ATE_M:g} cm")
+    if not abs(span - span_gt) / span_gt < MAX_SPAN_ERR_STEREO:
+        fail(f"stereo metric span {span:.4f} m against {span_gt:.4f} m")
+    if n_disp <= 150 or n_disp != int((ur >= 0).sum()):
+        fail(f"stereo keyframe 0: {n_disp} of {int((ur >= 0).sum())} right "
+             f"matches with 0 < disparity < fx (need > 150, all)")
+    if n_ok < MIN_TRACKED_SHARE * STEREO_FRAMES:
+        fail(f"stereo tracked {n_ok} of {STEREO_FRAMES} frames")
+    for name, want in (("fast_score_nms", STEREO_FRAMES),
+                       ("gather_blur_describe", STEREO_FRAMES),
+                       ("brief_pack", 0), ("gather_blur_moments", 0),
+                       ("gather_patches", 0)):
+        if launches[name] != want:
+            fail(f"kernel {name} launched {launches[name]} times for "
+                 f"{STEREO_FRAMES} stereo pairs, not {want}")
+    if not captured:
+        fail("the stereo run never called stereo_match")
+
+    # stereo_match on the run's first inputs: wall (host clock around a
+    # synchronize), call (CUDA events) and device ms with its kernel count.
+    a, kw = captured[0]
+    fn = lambda: original(*a, **kw)
+    walls = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append(1e3 * (time.perf_counter() - t1))
+    call_sm = cuda_ms(torch, fn, reps=5)
+    dev_sm, n_sm = stage_device_ms(torch, fn, reps=3, required=False)
+    idle = "not measured" if dev_sm is None else f"{1.0 - dev_sm / call_sm:.3f}"
+    print(f"stereo_match on the run's inputs (2 x {a[2].shape[0]} keypoints, "
+          f"8 levels): wall median {statistics.median(walls):.3f} ms, call "
+          f"{call_sm:.3f} ms, {n_sm} device kernels, {ms_text(dev_sm)} summed "
+          f"device time (profiler), device idle share {idle}; {card}",
+          flush=True)
+
+    # Kernels A and B at the pair's batch-2 shape, against their plain
+    # versions, and their times there.
+    pairs, _ = stereo_synthetic.render_pairs(cfg, 1, TEX_SCALE)
+    fb = slam.tracker.builder
+    img = torch.stack([fb._upload(pairs[0][0]), fb._upload(pairs[0][1])])
+    _, canvas, xy, levels = fb.extractor.detect(img)
+    for lvl, k_out in zip(levels, fast.fast_score_nms_levels(levels, 19)):
+        if not torch.equal(k_out, fast.nms3x3(fast.fast_score_map(lvl, 19))):
+            fail(f"kernel A differs from the plain version on the stereo "
+                 f"level {tuple(lvl.shape)}")
+    run_a = lambda: fast.fast_score_nms_levels(levels, 19)
+    px = sum(l.numel() for l in levels)
+    a_shape = dict(
+        shape=[tuple(l.shape) for l in levels], launches_per_frame=1,
+        ms=cuda_ms(torch, run_a),
+        device_ms=device_ms(torch, run_a, "fast_score_nms_kernel"),
+        plain_ms=cuda_ms(torch, lambda: [fast.nms3x3(fast.fast_score_map(l, 19))
+                                         for l in levels]),
+        bound=bound_ms(8.0 * px, 330.0 * px), bytes_ms=bound_ms(8.0 * px, 0.0)[0],
+        minmax_ms=1e3 * 106.0 * px / (F32_OPS_PER_S / 4))
+    pb, _, mom_err = check_kernel_b(canvas, xy)
+    n_read = canvas_floats_read(torch, patches, canvas, xy)
+    run_s = lambda: patches.gather_blur_describe(canvas, xy, 21)
+    dev_s, n_s = stage_device_ms(torch, run_s)
+    b_shape = dict(
+        shape=[tuple(canvas.shape), tuple(xy.shape)], launches_per_frame=1,
+        ms=cuda_ms(torch, run_s), device_ms=dev_s, kernels=n_s,
+        plain_ms=cuda_ms(torch, lambda: patches.gather_blur_describe_plain(
+            canvas, xy, 21)),
+        bound=describe_bound(n_read, xy, pb.shape[-1]),
+        canvas_floats=canvas.numel(), canvas_floats_read=n_read)
+    if n_s != 1:
+        fail(f"the describe stage launched {n_s} kernels at the stereo shape")
+    for label, r in (("kernel A (8 levels of the pair, B = 2)", a_shape),
+                     ("kernel B describe mode (2 x 2048 slots)", b_shape)):
+        print(f"{label} at the stereo shape {r['shape']}: device "
+              f"{r['device_ms']:.5f} ms, call {r['ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.4f} ms, bound {r['bound'][0]:.5f} ms "
+              f"({r['bound'][1]})"
+              + (f"; this design's: bytes {r['bytes_ms']:.5f} ms, min/max "
+                 f"issue {r['minmax_ms']:.5f} ms" if "bytes_ms" in r else
+                 f"; {n_read} of the canvas's {canvas.numel()} floats inside "
+                 f"the keypoints' windows") + f"; {card}", flush=True)
+    return dict(n_tracked=n_ok, ate_cm=100 * ate, span=span, span_gt=span_gt,
+                keyframes=slam.arena.n_keyframes(), points=slam.arena.n_points(),
+                kf0_matched=n_disp, wall_s=wall_s, track_median_ms=track_med,
+                mapping_median_ms=map_med, launches=launches,
+                stereo_match=dict(wall_ms=statistics.median(walls),
+                                  call_ms=call_sm, device_ms=dev_sm,
+                                  kernels=n_sm),
+                kernel_a=a_shape, kernel_b=b_shape, moments_err=mom_err)
+
+
+def rgbd_phase(torch, kernels, card) -> dict:
+    """Phase 9 (see the module docstring); returns its numbers."""
+    from orb_slam_system_tpu_torch.config import (CameraConfig, ORBConfig,
+                                                  Sensor, SlamConfig,
+                                                  TrackingState)
+    from orb_slam_system_tpu_torch.drivers import rgbd_synthetic
+
+    W, H = 640, 480
+    cam = CameraConfig(fx=520.0, fy=520.0, cx=W / 2, cy=H / 2, fps=30.0,
+                       width=W, height=H, bf=40.0)
+    # TUM's ThDepth 40 in baseline units, given in metres so that the JAX
+    # package (which stores the number raw) sees the same threshold.
+    cfg = SlamConfig(camera=cam, orb=ORBConfig(n_features=1000),
+                     sensor=Sensor.RGBD, th_depth=40.0 * 40.0 / 520.0,
+                     depth_map_factor=rgbd_synthetic.DEPTH_MAP_FACTOR)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    slam, ate, span, span_gt, loc_ok, vo_used = rgbd_synthetic.run(
+        RGBD_FRAMES, None, device="cuda", verbose=True, cfg=cfg,
+        tex_scale=TEX_SCALE, localize=LOCALIZE_FRAMES)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    recs = slam.telemetry.records
+    ok = int(TrackingState.OK)
+    n_ok = sum(r["state"] == ok for r in recs[:RGBD_FRAMES])
+    kf0 = slam.arena.kfs.get(slam.arena.kf_origin_id)
+    d = kf0.feats.depth[kf0.feats.valid] if kf0 is not None else np.zeros(0)
+    d = d[d > 0]
+    track_med = statistics.median(r["track_ms"] for r in recs)
+    map_med = statistics.median(r["mapping_ms"] for r in recs[:RGBD_FRAMES])
+    print(f"rgbd: {RGBD_FRAMES} frames {W}x{H} in {wall_s:.1f} s (with "
+          f"{LOCALIZE_FRAMES} in localization mode); initialized at frame "
+          f"{kf0.frame_id if kf0 else None}, {n_ok}/{RGBD_FRAMES} tracked, "
+          f"{slam.arena.n_keyframes()} keyframes, {slam.arena.n_points()} map "
+          f"points; ATE RMSE (SE3-aligned) {100 * ate:.3f} cm; metric span "
+          f"{span:.4f} m against {span_gt:.4f} m "
+          f"({100 * (span - span_gt) / span_gt:+.2f}%); keyframe 0 depths "
+          f"{float(d.min()) if len(d) else 0.0:.3f}-"
+          f"{float(d.max()) if len(d) else 0.0:.3f} m; localization mode: "
+          f"frames OK {loc_ok}, VO points used {vo_used}, VO points on the "
+          f"last frame {len(slam.tracker.current.vo_points or ())}, mb_vo "
+          f"{slam.tracker.mb_vo}; track median {track_med:.3f} ms, mapping "
+          f"median {map_med:.3f} ms (host clock); launches {launches}; {card}",
+          flush=True)
+    if n_ok < RGBD_FRAMES - 2:
+        fail(f"rgbd tracked {n_ok} of {RGBD_FRAMES} frames")
+    if not ate < MAX_RGBD_ATE_M:
+        fail(f"rgbd ATE {100 * ate:.3f} cm >= {100 * MAX_RGBD_ATE_M:g} cm")
+    if not abs(span - span_gt) / span_gt < MAX_SPAN_ERR_RGBD:
+        fail(f"rgbd metric span {span:.4f} m against {span_gt:.4f} m")
+    if slam.arena.n_points() <= 200:
+        fail(f"rgbd map has {slam.arena.n_points()} points (need > 200)")
+    if kf0 is None or not len(d) or not ((d > 1.0) & (d < 10.0)).all():
+        fail("rgbd keyframe 0's depths are not all inside (1, 10) m")
+    if not (loc_ok[0] and loc_ok[-1] and vo_used):
+        fail(f"localization mode: frames OK {loc_ok}, VO points used "
+             f"{vo_used} (need the first and the last OK, on VO points)")
+    n_frames = RGBD_FRAMES + LOCALIZE_FRAMES
+    for name, want in (("fast_score_nms", n_frames),
+                       ("gather_blur_describe", n_frames), ("brief_pack", 0),
+                       ("gather_blur_moments", 0), ("gather_patches", 0)):
+        if launches[name] != want:
+            fail(f"kernel {name} launched {launches[name]} times for "
+                 f"{n_frames} RGB-D frames, not {want}")
+    return dict(n_tracked=n_ok, ate_cm=100 * ate, span=span, span_gt=span_gt,
+                keyframes=slam.arena.n_keyframes(), points=slam.arena.n_points(),
+                localization_ok=loc_ok, vo_used=vo_used, wall_s=wall_s,
+                track_median_ms=track_med, mapping_median_ms=map_med,
+                launches=launches)
 
 
 def main() -> None:
@@ -729,19 +1022,14 @@ def main() -> None:
         return pb, pm, mom_err
 
     ex_init = FrameBuilder(cfg, dev, n_features=2 * cfg.orb.n_features).extractor
-    check_kernel_b(*ex_init.detect(img)[1:])
-    _, canvas, xy_all = ex.detect(img)
+    check_kernel_b(*ex_init.detect(img)[1:3])
+    _, canvas, xy_all, _ = ex.detect(img)
     pb, pm, mom_err = check_kernel_b(canvas, xy_all)
     n_kp = xy_all.shape[1]
     pb_side = pb.shape[-1]
-    # Bytes the gathers of kernels B and D must read: the canvas inside the
-    # union of the keypoints' clipped 43x43 windows. The rest of the canvas
-    # is filler (each level padded to the widest, rows rounded up to 8) and
-    # canvas that no keypoint of this frame reaches.
     Bc, Hc, Wc = canvas.shape
     flat = patches.gather_flat_index(xy_all, 21, Hc, Wc)
-    n_read = int(torch.zeros((Bc, Hc * Wc), dtype=torch.bool, device=dev)
-                 .scatter_(1, flat, True).sum())
+    n_read = canvas_floats_read(torch, patches, canvas, xy_all)
     # Operations per keypoint: the two blur passes over the 37x43 and
     # 37x37 outputs (blur mode), the moments over the 749-pixel circle,
     # and per rBRIEF test two bf16 roundings and a compare.
@@ -768,12 +1056,9 @@ def main() -> None:
         return brief.brief_pack(blurred, angles_from_moments(mom))
     ms_chain = cuda_ms(torch, run_chain)
     dev_chain, n_chain = stage_device_ms(torch, run_chain)
-    # Describe stage: the windows' canvas and the centres read once;
-    # moments, angle and descriptor written once; the first pass, the second
-    # at the 512 test points, the moments, the tests. The chain moves the
-    # blurred patch out and back in, and the angle through device memory.
-    bound_s = bound_ms(4.0 * (n_read + xy_all.numel() + 11 * n_kp),
-                       n_kp * (ops_pass1 + 2 * 7 * 512 + 4 * 749) + ops_c)
+    bound_s = describe_bound(n_read, xy_all, pb_side)
+    # The chain moves the blurred patch out and back in, and the angle
+    # through device memory.
     bound_chain = bound_ms(4.0 * (n_read + xy_all.numel()
                                   + 2 * pb.numel() + 14 * n_kp),
                            ops_blur + ops_c)
@@ -1067,6 +1352,18 @@ def main() -> None:
     loop = loop_phase(torch, dev, kernels, loop_synthetic, loop_closing, sim3,
                       pose_graph, local_ba, card)
 
+    # 8. Stereo at KITTI width; 9. RGB-D and localization mode. The counters
+    # count only each phase.
+    stereo = stereo_phase(torch, kernels, check_kernel_b, card)
+    rgbd = rgbd_phase(torch, kernels, card)
+    for name, key in (("fast_score_nms", "kernel_a"),
+                      ("gather_blur_moments", "kernel_b")):
+        r = stereo[key]
+        report[name]["at_stereo_shape"] = dict(
+            shape=r["shape"], launches_per_frame=r["launches_per_frame"],
+            ms=r["ms"], device_ms=r["device_ms"], plain_ms=r["plain_ms"],
+            bound_ms=r["bound"][0], bound_by=r["bound"][1])
+
     # Launches of each kernel on the path that runs it: the System for A and
     # B (its describe mode), the extractor's unfused route for C and D.
     path_launches = dict(
@@ -1076,12 +1373,14 @@ def main() -> None:
         gather_patches=unfused_launches["gather_patches"])
     by_phase = {"unfused_route": unfused_launches, "slice": launches,
                 "system": system_launches, "relocalization": reloc["launches"],
-                "loop": loop["launches"]}
+                "loop": loop["launches"], "stereo": stereo["launches"],
+                "rgbd": rgbd["launches"]}
     counter = dict(fast_score_nms="fast_score_nms",
                    gather_blur_moments="gather_blur_describe",
                    brief_pack="brief_pack", gather_patches="gather_patches")
     print(json.dumps({"relocalization": reloc}), flush=True)
     print(json.dumps({"loop": loop}), flush=True)
+    print(json.dumps({"stereo": stereo, "rgbd": rgbd}, default=str), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": r["source"],

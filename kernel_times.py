@@ -78,7 +78,7 @@ def main() -> None:
 
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
-    _, canvas, xy = ex.detect(img)
+    _, canvas, xy, _ = ex.detect(img)
     torch.cuda.synchronize()
     launches_a = kernels.LAUNCHES["fast_score_nms"]
     blurred, mom = patches.gather_blur_moments(canvas, xy, 21)

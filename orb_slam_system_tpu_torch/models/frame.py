@@ -1,12 +1,18 @@
 """Frame: per-image feature container + device-side construction.
 
 Port of orb_slam_system_tpu/models/frame.py (reference Frame: ORB extraction,
-keypoint undistortion, image bounds), monocular only. `FrameBuilder.build`
-runs extraction + undistortion on the FrameBuilder's device and keeps ONE
-packed f32[N, 16] tensor there, in the JAX package's layout:
+keypoint undistortion, image bounds, stereo matches and RGB-D depth).
+`FrameBuilder.build` (monocular), `build_stereo` and `build_rgbd` run on the
+FrameBuilder's device and keep ONE packed f32[N, 16] (monocular) or
+f32[N, 18] (stereo, RGB-D) tensor there, in the JAX package's layout:
 
     0:2 xy (level-0 pixels)   2:4 undistorted xy   4 response   5 angle
     6 octave   7 valid   8:16 the 8 descriptor words, bit-cast to f32
+    16 u_right (-1: none)   17 depth in metres (-1: none)
+
+A stereo frame runs ONE extraction over the left and right images stacked
+to batch 2 (kernels A and B launch once for the pair), then the stereo
+match on the pyramid levels that extraction built.
 
 The tracking programs consume that tensor directly; the host copy
 (`Frame.feats`, the map arena's FrameFeatures) is made lazily. A Frame also
@@ -25,6 +31,7 @@ import torch
 from orb_slam_system_tpu_torch.config import SlamConfig
 from orb_slam_system_tpu_torch.mapping.arena import FrameFeatures
 from orb_slam_system_tpu_torch.ops.extractor import ORBExtractor
+from orb_slam_system_tpu_torch.ops.stereo import rgbd_pseudo_stereo, stereo_match
 from orb_slam_system_tpu_torch.utils import camera as cam_ops
 from orb_slam_system_tpu_torch.utils.precision import set_f32_policy
 
@@ -36,7 +43,7 @@ class Frame:
 
     id: int
     timestamp: float
-    packed: torch.Tensor                    # f32[N, 16] on the device
+    packed: torch.Tensor                    # f32[N, 16 or 18] on the device
     feats_host: Optional[FrameFeatures] = None
     Tcw: Optional[np.ndarray] = None        # f32[4,4] world->camera
     mp_ids: Optional[np.ndarray] = None     # i64[N] map point per feature
@@ -46,6 +53,10 @@ class Frame:
     # mlRelativeFramePoses): the next frame re-anchors the motion model
     # through it after local BA moved the reference keyframe.
     Tcr_ref: Optional[np.ndarray] = None
+    # Localization mode's temporary visual-odometry points (reference
+    # UpdateLastFrame): {feature slot -> world position f32[3]} of features
+    # matched to depth back-projections that are not in the map.
+    vo_points: Optional[dict] = None
 
     def __post_init__(self):
         n = self.n_slots
@@ -65,6 +76,11 @@ class Frame:
             self.feats_host = FrameBuilder._unpack_feats(
                 self.packed.cpu().numpy())
         return self.feats_host
+
+    @property
+    def depth(self) -> Optional[np.ndarray]:
+        """Per-slot depth in metres (-1: none); None for a monocular frame."""
+        return self.feats.depth
 
     @property
     def n_valid(self) -> int:
@@ -91,6 +107,7 @@ class FrameBuilder:
         self.scale_factors = self.extractor.scales
         self.sigma2 = (self.scale_factors ** 2).astype(np.float32)
         self.inv_sigma2 = (1.0 / self.sigma2).astype(np.float32)
+        self._scales_dev = torch.from_numpy(self.scale_factors).to(self.device)
         self.bounds = cam_ops.compute_image_bounds(
             cam.width, cam.height, cam.fx, cam.fy, cam.cx, cam.cy,
             cam.k1, cam.k2, cam.p1, cam.p2, cam.k3)
@@ -98,8 +115,10 @@ class FrameBuilder:
 
     @staticmethod
     def _unpack_feats(packed: np.ndarray) -> FrameFeatures:
-        """Packed f32[N, 16] (numpy) -> FrameFeatures."""
+        """Packed f32[N, 16] or f32[N, 18] (numpy) -> FrameFeatures; u_right
+        and depth stay None for a monocular frame."""
         packed = np.ascontiguousarray(packed, dtype=np.float32)
+        stereo = packed.shape[1] >= 18
         return FrameFeatures(
             xy=packed[:, 0:2].copy(),
             xy_und=packed[:, 2:4].copy(),
@@ -108,29 +127,81 @@ class FrameBuilder:
             octave=packed[:, 6].astype(np.int32),
             desc=np.ascontiguousarray(packed[:, 8:16]).view(np.uint32),
             valid=packed[:, 7] > 0.5,
+            u_right=packed[:, 16].copy() if stereo else None,
+            depth=packed[:, 17].copy() if stereo else None,
         )
 
-    def extract_packed(self, img) -> torch.Tensor:
-        """img: u8/f32 [H, W] (numpy or tensor) -> packed f32[N, 16] on the
-        FrameBuilder's device. u8 input uploads as u8 and is cast there; any
-        memory layout is taken (the kernels need a contiguous image)."""
+    def _upload(self, img) -> torch.Tensor:
+        """u8/f32 [H, W] (numpy or tensor) -> contiguous f32 on the device;
+        u8 input uploads as u8 and is cast there, any memory layout is
+        taken (the kernels need a contiguous image)."""
+        return torch.as_tensor(img).to(self.device).to(torch.float32).contiguous()
+
+    def _undistort(self, fs) -> torch.Tensor:
+        """Undistorted xy f32[N, 2] of a FeatureSet's batch entry 0."""
         k = self.cfg.camera
-        x = torch.as_tensor(img).to(self.device).to(torch.float32).contiguous()
-        fs = self.extractor(x[None])
-        und = cam_ops.undistort_points(fs.xy, k.fx, k.fy, k.cx, k.cy,
-                                       k.k1, k.k2, k.p1, k.p2, k.k3)
+        return cam_ops.undistort_points(fs.xy[:1], k.fx, k.fy, k.cx, k.cy,
+                                        k.k1, k.k2, k.p1, k.p2, k.k3)[0]
+
+    def _pack(self, fs, extra=(), und=None) -> torch.Tensor:
+        """Batch entry 0 of a FeatureSet (und: its undistorted xy, computed
+        when not given) plus the extra per-slot columns -> packed
+        f32[N, 16 + len(extra)]."""
+        und = self._undistort(fs) if und is None else und
         return torch.cat([
-            fs.xy[0], und[0],
+            fs.xy[0], und,
             fs.response[0][:, None], fs.angle[0][:, None],
             fs.octave[0].to(torch.float32)[:, None],
             fs.valid[0].to(torch.float32)[:, None],
             fs.desc[0].view(torch.float32),
+            *[c[:, None] for c in extra],
         ], dim=1)
+
+    def extract_packed(self, img) -> torch.Tensor:
+        """img: u8/f32 [H, W] -> packed f32[N, 16] on the device."""
+        return self._pack(self.extractor(self._upload(img)[None]))
+
+    def extract_packed_stereo(self, left, right) -> torch.Tensor:
+        """A rectified pair -> packed f32[N, 18] of the left image: one
+        extraction at batch 2 (the reference's two extraction threads), then
+        the stereo match on that extraction's pyramid levels."""
+        k = self.cfg.camera
+        fs, levels = self.extractor.extract(
+            torch.stack([self._upload(left), self._upload(right)]))
+        u_right, depth = stereo_match(
+            [l[0] for l in levels], [l[1] for l in levels],
+            fs.xy[0], fs.octave[0], fs.desc[0], fs.valid[0],
+            fs.xy[1], fs.octave[1], fs.desc[1], fs.valid[1],
+            self._scales_dev, k.bf, 0.0, k.fx)
+        return self._pack(fs, (u_right, depth))
+
+    def extract_packed_rgbd(self, img, depth_map) -> torch.Tensor:
+        """An image and its raw depth map (scaled by 1 / DepthMapFactor,
+        reference Tracking.cc:90-96) -> packed f32[N, 18]."""
+        df = self.cfg.depth_map_factor
+        fs = self.extractor(self._upload(img)[None])
+        und = self._undistort(fs)
+        if not torch.is_tensor(depth_map):
+            depth_map = np.asarray(depth_map, np.float32)   # e.g. TUM's u16
+        u_right, depth = rgbd_pseudo_stereo(
+            self._upload(depth_map), fs.xy[0], und, fs.valid[0],
+            self.cfg.camera.bf, 1.0 / df if abs(df) > 1e-5 else 1.0)
+        return self._pack(fs, (u_right, depth), und)
 
     def build(self, img, timestamp: float) -> Frame:
         """img: f32/u8 [H, W] grayscale -> Frame whose packed tensor stays
         on the device (no host copy)."""
-        f = Frame(id=self._next_id, timestamp=timestamp,
-                  packed=self.extract_packed(img))
+        return self._frame(self.extract_packed(img), timestamp)
+
+    def build_stereo(self, left, right, timestamp: float) -> Frame:
+        """A rectified stereo pair -> Frame (packed f32[N, 18])."""
+        return self._frame(self.extract_packed_stereo(left, right), timestamp)
+
+    def build_rgbd(self, img, depth_map, timestamp: float) -> Frame:
+        """An image and its raw depth map -> Frame (packed f32[N, 18])."""
+        return self._frame(self.extract_packed_rgbd(img, depth_map), timestamp)
+
+    def _frame(self, packed: torch.Tensor, timestamp: float) -> Frame:
+        f = Frame(id=self._next_id, timestamp=timestamp, packed=packed)
         self._next_id += 1
         return f

@@ -594,6 +594,7 @@ class LocalMapper:
         e_cam = np.asarray(tri_cam, np.int64)
         fidx = np.asarray(tri_fidx, np.int64)
         e_uv = np.zeros((n_e, 2), np.float32)
+        e_ur = np.full(n_e, -1.0, np.float32)     # stereo edges: u_right >= 0
         e_is2 = np.ones(n_e, np.float32)
         for c_id, ci in cam_index.items():
             rows = np.nonzero(e_cam == ci)[0]
@@ -601,6 +602,7 @@ class LocalMapper:
                 continue
             w_kf = self.arena.kfs[c_id]
             e_uv[rows] = w_kf.feats.xy_und[fidx[rows]]
+            e_ur[rows] = w_kf.feats.ur_or_neg()[fidx[rows]]
             e_is2[rows] = self.inv_sigma2[w_kf.feats.octave[fidx[rows]]]
         t = self._t
         prob = BAProblem(
@@ -608,7 +610,7 @@ class LocalMapper:
             points=t(pts), pt_valid=t(np.ones(len(pt_ids), bool)),
             e_cam=t(e_cam), e_pt=t(np.asarray(tri_pt, np.int64)),
             e_uv=t(e_uv), e_inv_sigma2=t(e_is2),
-            e_valid=t(np.ones(n_e, bool)), bf=self.cfg.camera.bf)
+            e_valid=t(np.ones(n_e, bool)), e_ur=t(e_ur), bf=self.cfg.camera.bf)
         return prob, cam_index, cam_fixed, pt_index, edge_refs
 
     def _local_ba_writeback(self, cam_index, cam_fixed, pt_index, edge_refs,

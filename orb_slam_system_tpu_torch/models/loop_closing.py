@@ -9,7 +9,10 @@ src/LoopClosing.cc, with the upstream loop edges and global BA):
     candidates (with the unconstrained retry), one batched Sim3 RANSAC over
     those with >= 20 matches, then for each RANSAC survivor in candidate
     order the Sim3-guided mutual re-search, OptimizeSim3 (>= 20 inliers)
-    and the >= 40 projected-match gate.
+    and the >= 40 projected-match gate. A stereo or RGB-D map fixes the
+    scale of the RANSAC and of OptimizeSim3 to 1 (`fix_scale`); the
+    essential graph leaves its vertices' scales free, as the JAX package's
+    does (the reference fixes them too: ROADMAP.md section 3).
   * CorrectLoop: corrected Sim3s propagated over the current keyframe's
     covisible group, their map points corrected, the loop points fused,
     the covisibility recounted, the essential graph optimized, the loop
@@ -48,7 +51,7 @@ from typing import Dict, List
 import numpy as np
 import torch
 
-from orb_slam_system_tpu_torch.config import SlamConfig
+from orb_slam_system_tpu_torch.config import Sensor, SlamConfig
 from orb_slam_system_tpu_torch.mapping.arena import KeyFrameRec, MapArena
 from orb_slam_system_tpu_torch.models.local_mapping import _pad_slots
 from orb_slam_system_tpu_torch.models.place_recognition import PlaceRecognition
@@ -96,6 +99,9 @@ class LoopCloser:
         # The reference solves global BA on a side thread; sync_gba solves
         # it inline, so a run gives the same map every time.
         self.sync_gba = sync_gba
+        # A stereo or RGB-D map has metric scale: its loop Sim3s keep s = 1
+        # (reference LoopClosing mbFixScale).
+        self.fix_scale = cfg.sensor != Sensor.MONOCULAR
 
     def _t(self, a) -> torch.Tensor:
         return to_device(a, self.device)
@@ -223,7 +229,8 @@ class LoopCloser:
         with st.stage("sim3_ransac_batch"):
             out = sim3.sim3_ransac_batch(
                 t(P1b), t(P2b), t(uv1b), t(uv2b), t(m1b), t(m2b), t(okb),
-                t(sets), cam.fx, cam.fy, cam.cx, cam.cy).cpu().numpy()
+                t(sets), cam.fx, cam.fy, cam.cx, cam.cy,
+                fix_scale=self.fix_scale).cpu().numpy()
         for k, (ckf, rows1, rows2, P1, P2, ok) in enumerate(eligible):
             if not out[k, 0] > 0.5:
                 self.stats["rej_ransac"] += 1
@@ -252,7 +259,8 @@ class LoopCloser:
                     t(kf.feats.xy_und[rows1]), t(ckf.feats.xy_und[rows2]),
                     t(self.inv_sigma2[kf.feats.octave[rows1]]),
                     t(self.inv_sigma2[ckf.feats.octave[rows2]]),
-                    t(ok1 & ok2), cam.fx, cam.fy, cam.cx, cam.cy)
+                    t(ok1 & ok2), cam.fx, cam.fy, cam.cx, cam.cy,
+                    fix_scale=self.fix_scale)
                 res = torch.cat([n_in.to(s_f.dtype)[None], s_f[None],
                                  R_f.reshape(9), t_f,
                                  inl_f.to(s_f.dtype)]).cpu().numpy()

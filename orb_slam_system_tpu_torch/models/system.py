@@ -1,9 +1,13 @@
 """System facade: the public API a user constructs and feeds frames to.
 
-Port of orb_slam_system_tpu/models/system.py (reference System), monocular
-with synchronous mapping (the JAX System's default async_mapping=False):
-track_monocular tracks the frame, then drains the local mapper inline, so
-results are the same every run. Place recognition (vocabulary + keyframe
+Port of orb_slam_system_tpu/models/system.py (reference System) for the
+monocular, stereo and RGB-D sensors, with synchronous mapping (the JAX
+System's default async_mapping=False): track_monocular, track_stereo or
+track_rgbd tracks the frame, then drains the local mapper inline, so
+results are the same every run. A stereo or RGB-D map is seeded from the
+first frame's depths at metric scale, and its loop closures solve Sim3s
+with the scale fixed to 1. Localization mode (activate_localization_mode)
+tracks against the map without creating keyframes. Place recognition (vocabulary + keyframe
 database) serves relocalization and the reference-keyframe search: the
 vocabulary is loaded from `vocabulary_path` (the reference's ORBvoc text
 format) or, without one, self-trained from the map's keyframes once there
@@ -13,9 +17,8 @@ thread unless `sync_gba` is set, and a finished solve is applied after the
 next frame's mapping, or at shutdown. Trajectory export in the reference's
 TUM, keyframe-TUM and KITTI formats.
 
-Not in this port yet: stereo and RGB-D tracking, localization mode, the
-async mapper, the streaming and pipelined modes, the viewer, map
-save/load.
+Not in this port yet: the async mapper, the streaming and pipelined modes,
+the viewer, map save/load.
 """
 
 from __future__ import annotations
@@ -46,8 +49,6 @@ class System:
                  sync_gba: bool = False):
         set_f32_policy()
         self.sensor = Sensor(sensor)
-        if self.sensor != Sensor.MONOCULAR:
-            raise ValueError("the port tracks monocular frames only")
         self.cfg = (load_settings(settings, self.sensor)
                     if isinstance(settings, str) else settings)
         self.device = torch.device(device)
@@ -73,10 +74,43 @@ class System:
     def track_monocular(self, img: np.ndarray, timestamp: float):
         """Reference TrackMonocular. img: grayscale or RGB (converted);
         returns Tcw (4x4) or None."""
-        if img.ndim == 3:
-            img = rgb_to_gray(img, self.cfg.camera.rgb)
+        self._check_sensor(Sensor.MONOCULAR, "track_monocular")
+        return self._track(self.tracker.grab_monocular, timestamp,
+                           self._gray(img), timestamp)
+
+    def track_stereo(self, img_left: np.ndarray, img_right: np.ndarray,
+                     timestamp: float):
+        """Reference TrackStereo: a rectified pair, grayscale or RGB
+        (converted); returns Tcw (4x4) or None."""
+        self._check_sensor(Sensor.STEREO, "track_stereo")
+        return self._track(self.tracker.grab_stereo, timestamp,
+                           self._gray(img_left), self._gray(img_right),
+                           timestamp)
+
+    def track_rgbd(self, img: np.ndarray, depth: np.ndarray, timestamp: float):
+        """Reference TrackRGBD: an image, grayscale or RGB (converted), and
+        its raw depth map (DepthMapFactor units); returns Tcw (4x4) or
+        None."""
+        self._check_sensor(Sensor.RGBD, "track_rgbd")
+        return self._track(self.tracker.grab_rgbd, timestamp, self._gray(img),
+                           depth, timestamp)
+
+    TrackMonocular = track_monocular
+    TrackStereo = track_stereo
+    TrackRGBD = track_rgbd
+
+    def _check_sensor(self, sensor: Sensor, call: str):
+        if self.sensor != sensor:
+            raise RuntimeError(f"{call} called on a {self.sensor.name} system")
+
+    def _gray(self, img: np.ndarray) -> np.ndarray:
+        return rgb_to_gray(img, self.cfg.camera.rgb) if img.ndim == 3 else img
+
+    def _track(self, grab, timestamp: float, *args):
+        """Track one frame through grab(*args), drain the mapper, apply a
+        finished global BA and record the frame's telemetry."""
         t0 = time.perf_counter()
-        Tcw = self.tracker.grab_monocular(img, timestamp)
+        Tcw = grab(*args)
         t1 = time.perf_counter()
         self.local_mapper.process_pending()
         self.loop_closer.poll_gba()
@@ -92,7 +126,17 @@ class System:
             track_ms=(t1 - t0) * 1e3, mapping_ms=(t2 - t1) * 1e3)
         return Tcw
 
-    TrackMonocular = track_monocular
+    def activate_localization_mode(self):
+        """Reference ActivateLocalizationMode: tracking goes on, no
+        keyframes are made (the mapper gets nothing to do)."""
+        self.tracker.only_tracking = True
+
+    def deactivate_localization_mode(self):
+        self.tracker.only_tracking = False
+        self.tracker.mb_vo = False
+
+    ActivateLocalizationMode = activate_localization_mode
+    DeactivateLocalizationMode = deactivate_localization_mode
 
     def reset(self):
         self.tracker.reset()

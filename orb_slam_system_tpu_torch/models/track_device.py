@@ -59,13 +59,18 @@ def _drop_set(n_out, idx, values, fill, dev):
 
 def unpack(packed: torch.Tensor):
     """Columns of a packed frame: 2:4 undistorted xy, 5 angle, 6 octave,
-    7 valid, 8:16 descriptor words; u_right is -1 (monocular)."""
+    7 valid, 8:16 descriptor words, 16 u_right (a stereo or RGB-D frame's
+    18 columns; -1 for a monocular frame's 16), so stereo edges reach the
+    pose LM."""
     xy = packed[:, 2:4]
     ang = packed[:, 5]
     octv = packed[:, 6].to(torch.int64)
     valid = packed[:, 7] > 0.5
     desc = packed[:, 8:16].contiguous().view(torch.int32)
-    ur = torch.full((packed.shape[0],), -1.0, device=packed.device)
+    if packed.shape[1] > 16:
+        ur = packed[:, 16]
+    else:
+        ur = torch.full((packed.shape[0],), -1.0, device=packed.device)
     return xy, ang, octv, valid, desc, ur
 
 

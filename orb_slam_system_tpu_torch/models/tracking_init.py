@@ -1,12 +1,15 @@
-"""The tracker's monocular initialization and keyframe policy.
+"""The tracker's initialization and keyframe policy.
 
-Port of the JAX package's models/tracking.py:391-521 (reference
-MonocularInitialization and CreateInitialMapMonocular) and :1362-1583
-(NeedNewKeyFrame, CreateNewKeyFrame), monocular, with the synchronous
+Port of the JAX package's models/tracking.py:391-553 (reference
+MonocularInitialization, CreateInitialMapMonocular and StereoInitialization)
+and :1362-1617 (NeedNewKeyFrame, CreateNewKeyFrame), with the synchronous
 mapper: mapping drains its queue after every frame, so it is idle at each
 keyframe decision and the async admission and backpressure machinery has
-nothing to do. A mixin of models.tracking.Tracker, which owns the state it
-reads (arena, frames, builders, programs, local mapper).
+nothing to do. A monocular map starts from two views; a stereo or RGB-D
+map from one frame's depths, at metric scale, and every later keyframe of
+those sensors seeds points from its close depths. A mixin of
+models.tracking.Tracker, which owns the state it reads (arena, frames,
+builders, programs, local mapper).
 """
 
 from __future__ import annotations
@@ -14,7 +17,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from orb_slam_system_tpu_torch.config import TrackingState
+from orb_slam_system_tpu_torch.config import Sensor, TrackingState
 from orb_slam_system_tpu_torch.models.track_device import unpack
 from orb_slam_system_tpu_torch.ops import matching
 from orb_slam_system_tpu_torch.solvers.initializer import initialize_two_view
@@ -22,8 +25,16 @@ from orb_slam_system_tpu_torch.solvers.local_ba import (
     BAProblem, global_bundle_adjustment)
 
 
-class MonoInitAndKeyframes:
-    """Monocular two-view initialization and the keyframe decision."""
+def _backproject(xy_und: np.ndarray, z: np.ndarray, cam) -> np.ndarray:
+    """Camera-frame points f32[N, 3] of undistorted pixels at depths z."""
+    return np.stack([(xy_und[:, 0] - cam.cx) / cam.fx * z,
+                     (xy_und[:, 1] - cam.cy) / cam.fy * z, z],
+                    axis=1).astype(np.float32)
+
+
+class InitAndKeyframes:
+    """Map initialization (two-view, or from depth) and the keyframe
+    decision."""
 
     # ---- initialization (reference Tracking.cc:305-428) -------------------
 
@@ -146,6 +157,34 @@ class MonoInitAndKeyframes:
         self.init_ref = None
         self.state = TrackingState.OK
 
+    def stereo_initialization(self):
+        """Reference StereoInitialization (JAX tracking.py:523-553): a frame
+        with more than 500 features seeds the map from its depths at the
+        identity pose; at least 100 points, or the map is reset."""
+        cur = self.current
+        if cur.n_valid <= 500:
+            return
+        cur.Tcw = np.eye(4, dtype=np.float32)
+        kf = self.arena.new_keyframe(cur.id, cur.timestamp, cur.Tcw, cur.feats)
+        slots = np.nonzero(cur.feats.valid & (cur.depth > 0))[0]
+        X = _backproject(cur.feats.xy_und[slots], cur.depth[slots],
+                         self.cfg.camera)
+        for i, x in zip(slots, X):
+            mp = self.arena.new_point(x, cur.feats.desc[i], kf.id, kf.id)
+            self.arena.add_observation(mp, kf, int(i))
+            self.arena.update_normal_and_depth(mp, self.scale_factors)
+            cur.mp_ids[i] = mp.id
+        if len(slots) < 100:
+            self._reset_map()
+            return
+        self.arena.update_connections(kf)
+        cur.ref_kf_id = kf.id
+        self.ref_kf_id = kf.id
+        self.last_kf_frame_id = cur.id
+        self.last_kf_id = kf.id
+        self.local_mapper.insert_keyframe(kf.id)
+        self.state = TrackingState.OK
+
     def _reset_map(self):
         self.arena.kfs.clear()
         self.arena.mps.clear()
@@ -158,6 +197,8 @@ class MonoInitAndKeyframes:
     # ---- keyframe decision / creation (reference :578-659) ----------------
 
     def need_new_keyframe(self) -> bool:
+        if self.only_tracking:
+            return False
         n_kfs = self.arena.n_keyframes()
         # No keyframe for max_frames frames after a relocalization once
         # the map holds more than max_frames keyframes.
@@ -172,10 +213,27 @@ class MonoInitAndKeyframes:
         # and the mapper idle, which the synchronous mapper always is here.
         c1a = frames_since_kf >= self.max_frames
         c1b = frames_since_kf >= self.min_frames and self.local_mapper.accepting()
-        # Current inliers vs the reference keyframe's tracked points
-        # (ratio 0.9, monocular).
-        c2 = self.n_inliers < n_ref_matches * 0.9 and self.n_inliers > 15
-        return (c1a or c1b) and c2
+        # c1c, stereo and RGB-D: too few close points tracked while enough
+        # close points are not (reference :590-600).
+        mono = self.cfg.sensor == Sensor.MONOCULAR
+        c1c = False
+        if not mono:
+            n_tracked_close, n_nontracked_close = self._close_point_counts()
+            c1c = n_tracked_close < 100 and n_nontracked_close > 70
+        # Current inliers vs the reference keyframe's tracked points (ratio
+        # 0.9 monocular, 0.75 stereo and RGB-D).
+        th_ratio = 0.9 if mono else 0.75
+        c2 = ((self.n_inliers < n_ref_matches * th_ratio or c1c)
+              and self.n_inliers > 15)
+        return (c1a or c1b or c1c) and c2
+
+    def _close_point_counts(self):
+        """(tracked, not tracked) features with a depth below th_depth
+        (reference :590-600)."""
+        cur = self.current
+        close = (cur.depth > 0) & (cur.depth < self.cfg.th_depth)
+        tracked = (cur.mp_ids >= 0) & ~cur.outlier
+        return int((close & tracked).sum()), int((close & ~tracked).sum())
 
     def create_new_keyframe(self):
         cur = self.current
@@ -185,4 +243,33 @@ class MonoInitAndKeyframes:
         self.ref_kf_id = kf.id
         self.last_kf_frame_id = cur.id
         self.last_kf_id = kf.id
+        if self.cfg.sensor != Sensor.MONOCULAR:
+            self._seed_depth_points(kf)
         self.local_mapper.insert_keyframe(kf.id)
+
+    def _seed_depth_points(self, kf):
+        """Reference CreateNewKeyFrame (:619-659) for stereo and RGB-D: sweep
+        every valid feature with a depth, closest first, tracked ones too;
+        back-project each untracked one into a new point; stop once a depth
+        passes th_depth and more than 100 features were swept."""
+        cur = self.current
+        d = cur.depth
+        slots = np.nonzero(cur.feats.valid & (d > 0))[0]
+        slots = slots[np.argsort(d[slots], kind="stable")]
+        Twc = np.linalg.inv(cur.Tcw)
+        th = self.cfg.th_depth
+        for n_points, i in enumerate(slots):
+            z = float(d[i])
+            if z > th and n_points > 100:
+                break
+            if cur.mp_ids[i] >= 0:
+                continue
+            xc = np.append(_backproject(cur.feats.xy_und[i:i + 1], d[i:i + 1],
+                                        self.cfg.camera)[0], np.float32(1.0))
+            x3d = (Twc @ xc)[:3]
+            mp = self.arena.new_point(x3d, cur.feats.desc[i], kf.id, kf.id)
+            self.arena.add_observation(mp, kf, int(i))
+            self.arena.update_normal_and_depth(mp, self.scale_factors)
+            cur.mp_ids[i] = mp.id
+            kf.mp_ids[i] = mp.id
+            self.local_mapper.recent_points.append((mp.id, kf.id))

@@ -84,7 +84,13 @@ class ORBExtractor:
 
     def __call__(self, img: torch.Tensor) -> FeatureSet:
         """img: f32[B, H, W] grayscale in [0, 255]."""
-        sel, canvas, xy_all = self.detect(img)
+        return self.extract(img)[0]
+
+    def extract(self, img: torch.Tensor):
+        """img: f32[B, H, W] grayscale in [0, 255] -> (FeatureSet, the
+        pyramid levels f32[B, Hl, Wl] the keypoints were detected on; the
+        stereo match refines on them)."""
+        sel, canvas, xy_all, levels = self.detect(img)
         radius = PATCH_RADIUS + 3
         if self.fused_gather:
             _, ang, desc = gather_blur_describe(canvas, xy_all, radius)
@@ -95,12 +101,14 @@ class ORBExtractor:
             ang = ic_angles(raw[:, :, c0:c0 + po, c0:c0 + po])
             desc = brief_pack(blur_patches(raw), ang)
         return FeatureSet(xy=sel["xy"], response=sel["response"], angle=ang,
-                          octave=sel["octave"], desc=desc, valid=sel["valid"])
+                          octave=sel["octave"], desc=desc,
+                          valid=sel["valid"]), levels
 
     def detect(self, img: torch.Tensor):
         """Pyramid, FAST + NMS and per-level selection, and the all-level
         canvas. Returns (dict of xy/response/octave/valid over all slots,
-        canvas f32[B,R,C], canvas gather centres i32[B,N,2])."""
+        canvas f32[B,R,C], canvas gather centres i32[B,N,2], the pyramid
+        levels f32[B,Hl,Wl])."""
         cfg = self.cfg
         levels = pyr_ops.build_pyramid(img, cfg.n_levels, cfg.scale_factor)
         B = img.shape[0]
@@ -131,4 +139,4 @@ class ORBExtractor:
                                                    mode="reflect")
         sel = {"xy": torch.cat(xs, dim=1), "response": torch.cat(resps, dim=1),
                "octave": torch.cat(octs, dim=1), "valid": torch.cat(valids, dim=1)}
-        return sel, canvas, torch.cat(xy_gather, dim=1).to(torch.int32)
+        return sel, canvas, torch.cat(xy_gather, dim=1).to(torch.int32), levels

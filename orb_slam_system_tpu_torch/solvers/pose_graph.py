@@ -141,10 +141,11 @@ def optimize_essential_graph(R0, t0, s0, v_fixed, v_valid, e_i, e_j,
 
 
 def optimize_sim3(s0, R0, t0, P1, P2, uv1, uv2, inv_sigma2_1, inv_sigma2_2,
-                  valid, fx, fy, cx, cy):
+                  valid, fx, fy, cx, cy, fix_scale: bool = False):
     """Reference Optimizer::OptimizeSim3: minimize the forward (P2 -> image
     1) and inverse (P1 -> image 2) reprojection over S12 (s0 [], R0 [3,3],
-    t0 [3]; maps KF2 camera points into KF1's frame) with a free scale,
+    t0 [3]; maps KF2 camera points into KF1's frame), the scale free or,
+    with fix_scale, held at s0 (the LM step's scale component is zeroed),
     Huber sqrt(TH2_SIM3), SIM3_ITERS LM iterations; drop the chi2 > TH2_SIM3
     edges after a first pass and re-optimize from its optimum.
     P1, P2 f32[N,3] camera-frame points, uv1, uv2 f32[N,2], inv_sigma2_*
@@ -198,6 +199,9 @@ def optimize_sim3(s0, R0, t0, P1, P2, uv1, uv2, inv_sigma2_1, inv_sigma2_2,
             g = torch.einsum("n,nif,ni->f", w_all, J, r)
             A = H + lam * torch.diag(torch.diag(H)) + 1e-8 * eye7
             dx = -torch.linalg.solve(A, g)
+            if fix_scale:
+                dx = torch.where(torch.arange(7, device=dev) < 6, dx,
+                                 torch.zeros_like(dx))     # xi[6] is log s
             improved = robust_cost(xi + dx) < robust_cost(xi)
             xi = torch.where(improved, xi + dx, xi)
             lam = torch.where(improved, lam * 0.5, lam * 4.0).clamp(1e-10, 1e8)

@@ -2,9 +2,9 @@
 
 Port of orb_slam_system_tpu/solvers/sim3.py (reference Sim3Solver: Horn
 1987 quaternion method, RANSAC over 3-point samples, inliers by mutual
-reprojection under the chi2 9.210 sigma^2 gates). The scale is always free,
-as the monocular System needs; the reference's fixed scale for stereo and
-RGB-D comes back with those sensors.
+reprojection under the chi2 9.210 sigma^2 gates). The scale is free for a
+monocular map and fixed to 1 (`fix_scale`) for a stereo or RGB-D map,
+whose depths set it.
 
 Every hypothesis of every candidate pair is solved at once: the point
 arguments carry a leading candidate axis [C, N] written out (the JAX
@@ -15,6 +15,12 @@ follows it: sample weights are SET by a scatter (a set drawing a slot
 twice weighs it once), and the best hypothesis is the first maximum of the
 inlier counts. The eigenvector of Horn's 4x4 matrix may come back with
 either sign from LAPACK or cuSOLVER; R does not depend on it.
+
+With the scale fixed, every hypothesis and the refinement take Horn's
+translation at s = 1 (the reference's ComputeSim3: t = O1 - s R O2 after
+s is set). The JAX RANSAC solves each hypothesis with a free scale and then
+sets s = 1, keeping the translation of the free scale; the port does not
+copy that (ROADMAP.md section 3). Where the true scale is 1 the two agree.
 """
 
 from __future__ import annotations
@@ -26,10 +32,10 @@ CHI2_SIM3 = 9.210  # reference Sim3Solver ctor :67-68
 MIN_INLIERS = 20   # RANSAC(0.99, 20, 300), src/LoopClosing.cc:156
 
 
-def horn_sim3(P1, P2, w):
+def horn_sim3(P1, P2, w, fix_scale: bool = False):
     """Closed-form similarity P1 ~ s R P2 + t (frame-2 points into frame 1)
-    weighted by w (0 excludes): P1, P2 [..., N, 3], w [..., N]. Returns
-    (s [...], R [..., 3, 3], t [..., 3])."""
+    weighted by w (0 excludes): P1, P2 [..., N, 3], w [..., N]; s = 1 with
+    fix_scale. Returns (s [...], R [..., 3, 3], t [..., 3])."""
     wsum = w.sum(-1).clamp_min(1e-9)[..., None]
     mu1 = (P1 * w[..., None]).sum(-2) / wsum
     mu2 = (P2 * w[..., None]).sum(-2) / wsum
@@ -61,6 +67,8 @@ def horn_sim3(P1, P2, w):
     num = (Q1 * RQ2).sum((-1, -2))
     den = (Q2 * Q2 * w[..., None]).sum((-1, -2))
     s = num / den.clamp_min(1e-12)
+    if fix_scale:
+        s = torch.ones_like(s)
     t = mu1 - s[..., None] * (R @ mu2[..., None])[..., 0]
     return s, R, t
 
@@ -72,13 +80,13 @@ def _project(P, fx, fy, cx, cy):
 
 
 def sim3_ransac_batch(P1, P2, uv1, uv2, max_err1, max_err2, valid,
-                      sample_sets, fx, fy, cx, cy):
+                      sample_sets, fx, fy, cx, cy, fix_scale: bool = False):
     """Sim3 RANSAC between the matched map points of C keyframe pairs.
 
     P1/P2: f32[C, N, 3] camera-frame points of KF1 / KF2; uv1/uv2 f32[C, N, 2]
     their observed pixels; max_err*: f32[C, N] 9.21 sigma^2 per point;
     valid: bool[C, N]; sample_sets: i64[S, 3], slots taken modulo each pair's
-    valid count over its valid slots in order.
+    valid count over its valid slots in order; fix_scale: s = 1.
 
     Returns f32[C, 14 + N], per pair [ok, s, R (9), t (3), inliers (N)]: the
     similarity mapping KF2 camera points into KF1's frame (the JAX package's
@@ -113,7 +121,7 @@ def sim3_ransac_batch(P1, P2, uv1, uv2, max_err1, max_err2, valid,
 
     def solve(w):
         k = w.dim() - 1
-        return horn_sim3(ex(P1, k), ex(P2, k), w)
+        return horn_sim3(ex(P1, k), ex(P2, k), w, fix_scale)
 
     # Per set: weight 1 on its (up to 3 distinct) slots, set not added.
     w = torch.zeros((C, S, N), dtype=f32, device=dev).scatter_(

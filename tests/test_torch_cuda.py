@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card,
-and the relocalization and loop-closing paths' torch code on the card
-against the CPU, with one loop closed on the card.
+and the relocalization, loop-closing and stereo paths' torch code on the
+card against the CPU, with one loop closed and one stereo run tracked on
+the card.
 
 Marked `cuda`: they skip without a GPU (a CUDA kernel has no CPU mode).
 Run them on a machine with an NVIDIA GPU and nvcc (--noconftest: the
@@ -476,3 +477,96 @@ def test_loop_closes_on_the_card_320x240(dev):
     assert n_tracked >= 80
     assert rmse < 0.10
     assert slam.tracker.epoch_violations == 0
+
+
+def _kitti_pair():
+    """A rectified KITTI 00-02 pair (1241x376, bf 386.1448, 2000 features in
+    2048 slots) of the textured plane at texture scale 440, frame 0 of the
+    orbit, and its settings."""
+    import os
+    from orb_slam_system_tpu_torch.config import Sensor, load_settings
+    from orb_slam_system_tpu_torch.drivers.stereo_synthetic import render_pairs
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    cfg = load_settings(os.path.join(root, "examples", "settings",
+                                     "kitti00-02.yaml"), Sensor.STEREO)
+    pairs, _ = render_pairs(cfg, 1, tex_scale=440.0)
+    return cfg, pairs[0]
+
+
+def test_kernels_at_batch2_on_a_kitti_pair(dev):
+    """Kernels A and B (describe mode) at the stereo frame's shape: the
+    pair's 8 levels at B = 2 in one launch of A, bit-exact; B's describe
+    mode over the pair's 2 x 2048 keypoints against its plain checks (as
+    test_gather_blur_modes_match_plain), one launch each per frame."""
+    from orb_slam_system_tpu_torch.ops.extractor import ORBExtractor
+    from orb_slam_system_tpu_torch.utils import kernels
+    cfg, (left, right) = _kitti_pair()
+    ex = ORBExtractor(cfg.orb, cfg.camera.height, cfg.camera.width)
+    assert ex.n_slots == 2048
+    img = torch.from_numpy(np.stack([left, right])).to(dev)
+    sel, canvas, xy, levels = ex.detect(img)
+    assert levels[0].shape == (2, 376, 1241)
+    for lvl, got in zip(levels, fast.fast_score_nms_levels(levels, 19)):
+        assert torch.equal(got, fast.nms3x3(fast.fast_score_map(lvl, 19)))
+    kernels.reset_launch_counts()
+    dm, da, dd = patches.gather_blur_describe(canvas, xy, 21)
+    ex.extract(img)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["gather_blur_describe"] == 2
+    assert kernels.LAUNCHES["fast_score_nms"] == 1
+    kb, km = patches.gather_blur_moments(canvas, xy, 21)
+    pb, _ = patches.gather_blur_moments_plain(canvas, xy, 21)
+    assert torch.equal(kb, pb)
+    assert torch.equal(dm, km)
+    assert torch.equal(da, angles_from_moments(km))
+    assert torch.equal(dd, brief.brief_pack_plain(pb, da))
+
+
+def test_stereo_match_on_the_card_matches_cpu_kitti(dev):
+    """stereo_match on the card against the CPU on the same inputs (the
+    card's extraction of a KITTI-width pair, 2048 slots): matched masks
+    equal on all but 0.2% of the slots (the SAD sums run in another order
+    on the card, which can move a near-tie of the slide or a match at the
+    median filter's edge), u_right within 1e-3 px and depth within 1e-4 m
+    where both matched."""
+    from orb_slam_system_tpu_torch.models.frame import FrameBuilder
+    from orb_slam_system_tpu_torch.ops.stereo import stereo_match
+    cfg, (left, right) = _kitti_pair()
+    fb = FrameBuilder(cfg, dev)
+    c = cfg.camera
+    fs, levels = fb.extractor.extract(
+        torch.stack([fb._upload(left), fb._upload(right)]))
+
+    def match(d):
+        lv = [l.to(d) for l in levels]
+        sides = [a.to(d) for b in (0, 1) for a in (fs.xy[b], fs.octave[b],
+                                                    fs.desc[b], fs.valid[b])]
+        return [a.cpu().numpy() for a in stereo_match(
+            [l[0] for l in lv], [l[1] for l in lv], *sides,
+            fb._scales_dev.to(d), c.bf, 0.0, c.fx)]
+
+    gu, gd = match(dev)
+    cu, cd = match("cpu")
+    gm, cm = gu >= 0, cu >= 0
+    assert cm.sum() > 1000
+    assert (gm != cm).sum() <= 0.002 * len(cm)
+    both = gm & cm
+    np.testing.assert_allclose(gu[both], cu[both], atol=1e-3)
+    np.testing.assert_allclose(gd[both], cd[both], atol=1e-4)
+
+
+def test_stereo_system_on_the_card_320x240(dev):
+    """drivers/stereo_synthetic at tests/test_e2e_stereo.py's settings on
+    the card passes that file's bars."""
+    from orb_slam_system_tpu_torch.config import TrackingState
+    from orb_slam_system_tpu_torch.drivers import stereo_synthetic
+    slam, rmse, span, span_gt = stereo_synthetic.run(
+        18, None, 400, device="cuda", verbose=False)
+    assert slam.get_tracking_state() == TrackingState.OK
+    kf0 = slam.arena.kfs[slam.arena.kf_origin_id]
+    assert kf0.frame_id == 0
+    assert rmse < 0.12
+    assert abs(span - span_gt) / span_gt < 0.15
+    ur = kf0.feats.u_right
+    disp = kf0.feats.xy_und[ur >= 0, 0] - ur[ur >= 0]
+    assert len(disp) > 150 and (disp > 0).all() and disp.max() < slam.cfg.camera.fx

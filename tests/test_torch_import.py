@@ -16,7 +16,8 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
 for new in ("vocab.vocabulary", "mapping.keyframe_db",
             "models.place_recognition", "solvers.pnp", "solvers.sim3",
             "solvers.pose_graph", "models.loop_closing",
-            "drivers.loop_synthetic"):
+            "drivers.loop_synthetic", "ops.stereo", "drivers.stereo_synthetic",
+            "drivers.rgbd_synthetic"):
     assert pkg.__name__ + "." + new in names, new
 for n in names:
     importlib.import_module(n)

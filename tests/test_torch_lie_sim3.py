@@ -7,7 +7,14 @@ Tolerances, stated per test: Lie functions 1e-5; horn_sim3 s, R, t 1e-4;
 RANSAC and OptimizeSim3 the same ok / inlier count / mask, s and t within
 1e-3, R within 0.05 deg; essential graph poses 1e-3 / 0.05 deg;
 bundle_adjust_cg 1e-4. Rotations are compared as matrices, never as
-quaternions (an eigenvector's sign is arbitrary)."""
+quaternions (an eigenvector's sign is arbitrary).
+
+The Sim3 cases run with the scale free (monocular) and fixed (stereo and
+RGB-D, fix_scale), where s must come out exactly 1. With the scale fixed
+the data's true scale is 1, as a depth sensor's map has it: there the port
+(Horn's translation at s = 1 in every hypothesis, as the reference) and the
+JAX RANSAC (the free scale's translation, then s = 1) agree; at another
+true scale they would not (ROADMAP.md section 3)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -111,21 +118,27 @@ def _sim3_setup(rng, N=64, n_out=16, s=1.3, t=(0.4, -0.2, 0.3)):
     return P1.astype(np.float32), P2o.astype(np.float32), uv1, uv2, R
 
 
-def test_horn_sim3_matches_jax(rng):
+@pytest.mark.parametrize("fix_scale", [False, True])
+def test_horn_sim3_matches_jax(rng, fix_scale):
     P1, P2, _, _, _ = _sim3_setup(rng, n_out=0)
     w = (rng.uniform(size=len(P1)) > 0.3).astype(np.float32)
-    s, R, t = sim3.horn_sim3(T(P1), T(P2), T(w))
-    js, jR, jt = jsim3.horn_sim3(jnp.asarray(P1), jnp.asarray(P2), jnp.asarray(w))
+    s, R, t = sim3.horn_sim3(T(P1), T(P2), T(w), fix_scale)
+    js, jR, jt = jsim3.horn_sim3(jnp.asarray(P1), jnp.asarray(P2), jnp.asarray(w),
+                                 fix_scale)
     assert abs(float(s) - float(js)) < 1e-4
+    if fix_scale:
+        assert float(s) == 1.0
     np.testing.assert_allclose(R.numpy(), np.asarray(jR), atol=1e-4)
     np.testing.assert_allclose(t.numpy(), np.asarray(jt), atol=1e-4)
 
 
+@pytest.mark.parametrize("fix_scale", [False, True])
 @pytest.mark.parametrize("n_cand", [1, 3])
-def test_sim3_ransac_batch_matches_jax(rng, n_cand):
+def test_sim3_ransac_batch_matches_jax(rng, n_cand, fix_scale):
     """The same sample sets, drawn over the JAX loop closer's padded bound,
     on 1 and 3 candidate pairs (the last with 10 invalid slots)."""
-    setups = [_sim3_setup(rng, s=1.3 + 0.2 * c) for c in range(n_cand)]
+    setups = [_sim3_setup(rng, s=1.0 if fix_scale else 1.3 + 0.2 * c)
+              for c in range(n_cand)]
     P1, P2, uv1, uv2 = (np.stack([s_[k] for s_ in setups]) for k in range(4))
     N = P1.shape[1]
     valid = np.ones((n_cand, N), bool)
@@ -135,43 +148,53 @@ def test_sim3_ransac_batch_matches_jax(rng, n_cand):
     assert np.array_equal(sim3.make_sim3_sample_sets(64, 300, 0), sets)
     got = sim3.sim3_ransac_batch(T(P1), T(P2), T(uv1), T(uv2), T(m), T(m),
                                  T(valid), T(sets.astype(np.int64)),
-                                 FX, FY, CX, CY).numpy()
+                                 FX, FY, CX, CY, fix_scale=fix_scale).numpy()
     want = np.asarray(jsim3.sim3_ransac_batch(
         *(jnp.asarray(a) for a in (P1, P2, uv1, uv2, m, m, valid, sets)),
-        FX, FY, CX, CY))
+        FX, FY, CX, CY, fix_scale=fix_scale))
     assert got.shape == want.shape == (n_cand, 14 + N)
     np.testing.assert_array_equal(got[:, 0], want[:, 0])
     assert got[:, 0].all()
     np.testing.assert_array_equal(got[:, 14:], want[:, 14:])
     np.testing.assert_allclose(got[:, 1], want[:, 1], atol=1e-3)
     np.testing.assert_allclose(got[:, 11:14], want[:, 11:14], atol=1e-3)
+    if fix_scale:
+        assert (got[:, 1] == 1.0).all()
     for c in range(n_cand):
         assert rot_deg(got[c, 2:11].reshape(3, 3), want[c, 2:11].reshape(3, 3)) < 0.05
         assert rot_deg(got[c, 2:11].reshape(3, 3), setups[c][4]) < 0.3
 
 
-def test_optimize_sim3_matches_jax(rng):
+@pytest.mark.parametrize("fix_scale", [False, True])
+def test_optimize_sim3_matches_jax(rng, fix_scale):
     """tests/test_sim3_posegraph.py::test_optimize_sim3_refines's setup,
-    with 6 outlier rows so stage 2 drops edges."""
+    with 6 outlier rows so stage 2 drops edges. With the scale fixed the
+    data's scale and the start's are 1, as the loop closer hands it a
+    fixed-scale RANSAC result, and s stays exactly 1."""
     N = 48
-    P1, P2, uv1, uv2, R = _sim3_setup(rng, N=N, n_out=6, s=0.8, t=(0.3, 0.1, -0.2))
-    dxi = np.concatenate([rng.normal(size=6) * 0.02, [0.05]]).astype(np.float32)
+    s_true = 1.0 if fix_scale else 0.8
+    P1, P2, uv1, uv2, R = _sim3_setup(rng, N=N, n_out=6, s=s_true,
+                                      t=(0.3, 0.1, -0.2))
+    dxi = np.concatenate([rng.normal(size=6) * 0.02,
+                          [0.0 if fix_scale else 0.05]]).astype(np.float32)
     S0 = jlie.sim3_mul(jlie.sim3_exp(jnp.asarray(dxi)),
                        {"R": jnp.asarray(R), "t": jnp.asarray([0.3, 0.1, -0.2], jnp.float32),
-                        "s": jnp.asarray(0.8, jnp.float32)})
+                        "s": jnp.asarray(s_true, jnp.float32)})
     s0, R0, t0 = (np.asarray(S0[k], np.float32) for k in "sRt")
     is2 = np.ones(N, np.float32)
     valid = np.ones(N, bool)
     jn, js, jR, jt, jinl = jpg.optimize_sim3(
         jnp.asarray(s0), jnp.asarray(R0), jnp.asarray(t0),
         *(jnp.asarray(a) for a in (P1, P2, uv1, uv2, is2, is2, valid)),
-        FX, FY, CX, CY)
+        FX, FY, CX, CY, fix_scale=fix_scale)
     n, s, Rr, t, inl = pose_graph.optimize_sim3(
         T(s0), T(R0), T(t0), *(T(a) for a in (P1, P2, uv1, uv2, is2, is2, valid)),
-        FX, FY, CX, CY)
+        FX, FY, CX, CY, fix_scale=fix_scale)
     assert int(n) == int(jn) >= N - 6
     np.testing.assert_array_equal(inl.numpy(), np.asarray(jinl))
     assert abs(float(s) - float(js)) < 1e-3
+    if fix_scale:
+        assert float(s) == float(js) == 1.0
     np.testing.assert_allclose(t.numpy(), np.asarray(jt), atol=1e-3)
     assert rot_deg(Rr.numpy(), np.asarray(jR)) < 0.05
 
