@@ -69,7 +69,7 @@ Phases, each of which fails the run (exit code != 0) when it fails:
      same chunk;
   8. stereo at KITTI width: the KITTI 00-02 settings (1241x376, bf 386.1448,
      2000 features in 2048 slots) loaded for Sensor.STEREO,
-     System.track_stereo over 60 rectified pairs of phase 5's orbit at
+     System.track_stereo over 30 rectified pairs of phase 5's orbit at
      texture scale 440 through drivers/stereo_synthetic.run. Check
      tests/test_e2e_stereo.py's bars (initialized at frame 0, OK at the end,
      SE3-aligned ATE < 12 cm, metric span within 15%, > 150 keyframe-0
@@ -82,7 +82,7 @@ Phases, each of which fails the run (exit code != 0) when it fails:
      medians;
   9. RGB-D and localization mode: phase 5's 640x480 camera with bf 40,
      DepthMapFactor 5000 and th_depth 40 * 40 / 520 m for Sensor.RGBD,
-     System.track_rgbd over 60 frames of the orbit with the analytic depth
+     System.track_rgbd over 30 frames of the orbit with the analytic depth
      x 5000 (drivers/rgbd_synthetic.run), then localization mode with the
      last frame's map associations wiped for 8 more frames. Check
      tests/test_e2e_rgbd.py's bars (>= 58 of 60 tracked, ATE < 5 cm, SE3-
@@ -90,6 +90,28 @@ Phases, each of which fails the run (exit code != 0) when it fails:
      inside (1, 10) m), that VO points carried the first map-less frame and
      the last one is OK, and kernel A and B's describe mode launched once
      per frame.
+ 10. the realtime modes through the System's entry points, each run with
+     the kernel counters set to 0 before it and read after it, and a count
+     of the frame builds beside them (kernel A and B's describe mode must
+     launch once per build; a frame the chain drops and builds again
+     counts twice):
+     a. bench.py's bench_system_fps shape: phase 5's front end over a
+        72-frame orbit in u8, System(async_mapping=True), 16 classic
+        frames, 8 pipelined warm-up frames, then 48 timed frames through
+        track_monocular_pipelined(depth=2): fps over the 48, chain_stats,
+        kf_wait_stats, the tracking and mapping stage medians; bars >= 90%
+        of the timed frames OK, OK at the end, ATE < 3 cm, >= 1 chain
+        accept. Then one chain step from enqueue to its event wait on the
+        finished map, profiled (kernels, device ms, idle share). Then a
+        fresh async System: 24 classic frames and the same 48 through
+        track_monocular_stream, its fps beside phase 5's classic per-frame
+        time, with the same bars but the chain's;
+     b. phase 7's loop circle through track_monocular_pipelined: >= 1 loop
+        closed, >= 80 of 90 frames tracked, ATE < 10 cm, no pose-epoch
+        violation;
+     c. 30 of phase 8's KITTI-width pairs through track_stereo_pipelined:
+        initialized at frame 0, >= 90% OK, ATE < 12 cm, >= 1 chain accept
+        (one keyframe arms a stereo chain).
 The second-to-last line is a JSON object with each kernel's launches (on the
 path that runs it, and in every phase), error, times and bound; the last
 line is {"ok": true, "device": {...}}. Without CUDA, or without the package
@@ -123,10 +145,16 @@ MAX_ATE_M = 0.03            # tests/test_e2e_mono.py bar
 LOOP_FRAMES = 90            # tests/test_e2e_loop.py's short circle
 MIN_LOOP_TRACKED = 80       # ... and its bars
 MAX_LOOP_ATE_M = 0.10
-STEREO_FRAMES = 60          # phase 8: KITTI-width stereo pairs
+# Phases 8 and 9 ran 60 frames each until phase 10 came; 30 keep the
+# script's time (the bars are shares of the frames).
+STEREO_FRAMES = 30          # phase 8: KITTI-width stereo pairs
 MAX_STEREO_ATE_M = 0.12     # tests/test_e2e_stereo.py's bars
 MAX_SPAN_ERR_STEREO = 0.15
-RGBD_FRAMES = 60            # phase 9
+RGBD_FRAMES = 30            # phase 9
+REALTIME_FRAMES = 72        # phase 10a: bench_system_fps's orbit: its
+REALTIME_CLASSIC = 16       # classic frames, then
+REALTIME_WARM = 8           # pipelined warm-up frames, then the timed rest
+REALTIME_STEREO = 30        # phase 10c: KITTI-width pairs
 LOCALIZE_FRAMES = 8         # ... then in localization mode
 MAX_RGBD_ATE_M = 0.05       # tests/test_e2e_rgbd.py's bars
 MAX_SPAN_ERR_RGBD = 0.10
@@ -298,7 +326,8 @@ def profile_device(torch, label: str, fn, wall_ms) -> None:
     device time (torch.profiler), and the device's idle share against the
     unprofiled wall time wall_ms (None: the host-clock time of the profiled
     call itself, which the profiler inflates). An exception from fn fails
-    the run; if the profiler itself fails, say so and go on."""
+    the run; if the profiler itself fails, say so and go on. Returns
+    (kernels, device ms, wall ms), or None where the profiler failed."""
     from torch.profiler import ProfilerActivity, profile
     prof, why = profile(activities=[ProfilerActivity.CUDA]), None
     try:
@@ -320,12 +349,13 @@ def profile_device(torch, label: str, fn, wall_ms) -> None:
             prof, why = None, e
     if prof is None:
         print(f"{label}: device kernels not measured ({why})", flush=True)
-        return
+        return None
     n = sum(e.count for e in evs)
     dev_ms = sum(e.self_device_time_total for e in evs) / 1e3
     print(f"{label}: {n} device kernels, {dev_ms:.3f} ms summed device "
           f"time (profiler), wall {wall_ms:.3f} ms, device idle share "
           f"{1.0 - dev_ms / wall_ms:.3f}", flush=True)
+    return n, dev_ms, wall_ms
 
 
 def canvas_floats_read(torch, patches, canvas, xy) -> int:
@@ -452,11 +482,7 @@ def relocalization_phase(torch, slam, kernels, pnp, unpack, Vocabulary,
              f"(>= {100 * MAX_RELOC_ERR_M:g} cm)")
     if state_far != TrackingState.LOST:
         fail("the view 5 m off the orbit relocalized")
-    for name, want in (("fast_score_nms", 3), ("gather_blur_describe", 3),
-                       ("brief_pack", 0)):
-        if launches[name] != want:
-            fail(f"kernel {name} launched {launches[name]} times in phase 6's "
-                 f"3 frame builds, not {want}")
+    check_build_launches("phase 6", launches, 3)
     if not captured:
         fail("no EPnP-RANSAC call in phase 6")
 
@@ -599,13 +625,7 @@ def loop_phase(torch, dev, kernels, loop_synthetic, loop_closing, sim3,
         fail(f"loop circle ATE {100 * ate:.3f} cm >= {100 * MAX_LOOP_ATE_M:g} cm")
     if slam.tracker.epoch_violations:
         fail(f"{slam.tracker.epoch_violations} pose-epoch violations")
-    for name, want in (("fast_score_nms", LOOP_FRAMES),
-                       ("gather_blur_describe", LOOP_FRAMES),
-                       ("brief_pack", 0), ("gather_blur_moments", 0),
-                       ("gather_patches", 0)):
-        if launches[name] != want:
-            fail(f"kernel {name} launched {launches[name]} times in the loop "
-                 f"circle's {LOOP_FRAMES} frame builds, not {want}")
+    check_build_launches("the loop circle", launches, LOOP_FRAMES)
     keys = ("sim3_ransac_batch", "optimize_sim3", "optimize_essential_graph",
             "gba_chunk")
     missing = [k for k in keys if k not in captured]
@@ -727,13 +747,7 @@ def stereo_phase(torch, kernels, check_kernel_b, card) -> dict:
              f"matches with 0 < disparity < fx (need > 150, all)")
     if n_ok < MIN_TRACKED_SHARE * STEREO_FRAMES:
         fail(f"stereo tracked {n_ok} of {STEREO_FRAMES} frames")
-    for name, want in (("fast_score_nms", STEREO_FRAMES),
-                       ("gather_blur_describe", STEREO_FRAMES),
-                       ("brief_pack", 0), ("gather_blur_moments", 0),
-                       ("gather_patches", 0)):
-        if launches[name] != want:
-            fail(f"kernel {name} launched {launches[name]} times for "
-                 f"{STEREO_FRAMES} stereo pairs, not {want}")
+    check_build_launches("stereo", launches, STEREO_FRAMES)
     if not captured:
         fail("the stereo run never called stereo_match")
 
@@ -870,17 +884,284 @@ def rgbd_phase(torch, kernels, card) -> dict:
         fail(f"localization mode: frames OK {loc_ok}, VO points used "
              f"{vo_used} (need the first and the last OK, on VO points)")
     n_frames = RGBD_FRAMES + LOCALIZE_FRAMES
-    for name, want in (("fast_score_nms", n_frames),
-                       ("gather_blur_describe", n_frames), ("brief_pack", 0),
-                       ("gather_blur_moments", 0), ("gather_patches", 0)):
-        if launches[name] != want:
-            fail(f"kernel {name} launched {launches[name]} times for "
-                 f"{n_frames} RGB-D frames, not {want}")
+    check_build_launches("rgbd", launches, n_frames)
     return dict(n_tracked=n_ok, ate_cm=100 * ate, span=span, span_gt=span_gt,
                 keyframes=slam.arena.n_keyframes(), points=slam.arena.n_points(),
                 localization_ok=loc_ok, vo_used=vo_used, wall_s=wall_s,
                 track_median_ms=track_med, mapping_median_ms=map_med,
                 launches=launches)
+
+
+class BuildCount:
+    """Counts frame builds while active (FrameBuilder._frame runs once per
+    build, whichever builder and sensor)."""
+
+    def __init__(self, frame_mod):
+        self.n = 0
+        self._cls = frame_mod.FrameBuilder
+        self._orig = None
+
+    def __enter__(self):
+        orig = self._orig = self._cls._frame
+
+        def counted(builder, packed, timestamp):
+            self.n += 1
+            return orig(builder, packed, timestamp)
+        self._cls._frame = counted
+        return self
+
+    def __exit__(self, *exc):
+        self._cls._frame = self._orig
+
+
+def check_build_launches(label: str, launches: dict, n_builds: int) -> None:
+    """Kernel A and B's describe mode once per frame build, the unfused
+    route's kernels never."""
+    for name, want in (("fast_score_nms", n_builds),
+                       ("gather_blur_describe", n_builds), ("brief_pack", 0),
+                       ("gather_blur_moments", 0), ("gather_patches", 0)):
+        if launches[name] != want:
+            fail(f"{label}: kernel {name} launched {launches[name]} times for "
+                 f"{n_builds} frame builds, not {want}")
+
+
+def stage_medians(timer) -> dict:
+    """Median ms of each stage of a StageTimer."""
+    return {k: round(statistics.median(v), 3)
+            for k, v in sorted(timer.history.items()) if v}
+
+
+def realtime_phase(torch, kernels, card, classic_frame_ms: float) -> dict:
+    """Phase 10 (see the module docstring); returns its numbers.
+    classic_frame_ms: phase 5's median ms per frame (track + mapping)."""
+    from orb_slam_system_tpu_torch.config import (Sensor, TrackingState,
+                                                  load_settings)
+    from orb_slam_system_tpu_torch.dataio import trajectory as traj_io
+    from orb_slam_system_tpu_torch.drivers import (loop_synthetic,
+                                                   mono_synthetic,
+                                                   stereo_synthetic)
+    from orb_slam_system_tpu_torch.models import frame as frame_mod
+    from orb_slam_system_tpu_torch.models.system import System
+    from orb_slam_system_tpu_torch.models.track_device import ChainFetch
+
+    t_phase = time.perf_counter()
+    OK = TrackingState.OK
+    W, H = 640, 480
+    cfg = mono_synthetic.make_config(W, H, 1000)
+    frames, poses = mono_synthetic.render_sequence(cfg, REALTIME_FRAMES)
+    frames = [np.clip(f, 0, 255).astype(np.uint8) for f in frames]
+    gt = {i / 30.0: (-T[:3, :3].T @ T[:3, 3]).astype(np.float64)
+          for i, T in enumerate(poses)}
+    n_warm = REALTIME_CLASSIC + REALTIME_WARM
+    n_timed = REALTIME_FRAMES - n_warm
+
+    def items(lo, hi):
+        return ((frames[i], i / 30.0) for i in range(lo, hi))
+
+    def ate(slam):
+        return traj_io.ate_rmse(
+            traj_io.frame_poses(slam.arena, slam.tracker.trajectory), gt)
+
+    def timed(it, slam):
+        """(seconds, frames OK) over the frames `it` yields."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        n_ok = 0
+        for _ in it:
+            n_ok += slam.get_tracking_state() == OK
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, n_ok
+
+    def check_mono(label, slam, n_ok, err):
+        if n_ok < MIN_TRACKED_SHARE * n_timed:
+            fail(f"{label}: {n_ok} of the {n_timed} timed frames OK")
+        if slam.get_tracking_state() != OK:
+            fail(f"{label} ends {slam.get_tracking_state().name}, not OK")
+        if not err < MAX_ATE_M:
+            fail(f"{label} ATE {100 * err:.3f} cm >= {100 * MAX_ATE_M:g} cm")
+
+    def track_ms(recs):
+        return round(statistics.median(r["track_ms"] for r in recs), 3)
+
+    # 10a: the pipelined mode with the async mapper.
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    with BuildCount(frame_mod) as builds:
+        slam = System(cfg, device="cuda", async_mapping=True)
+        for i in range(REALTIME_CLASSIC):
+            slam.track_monocular(frames[i], i / 30.0)
+        for _ in slam.track_monocular_pipelined(
+                items(REALTIME_CLASSIC, n_warm), depth=2):
+            pass
+        dt, n_ok = timed(slam.track_monocular_pipelined(
+            items(n_warm, REALTIME_FRAMES), depth=2), slam)
+        slam.shutdown()
+    launches = dict(kernels.LAUNCHES)
+    tr = slam.tracker
+    recs = slam.telemetry.records
+    err = ate(slam)
+    mono = dict(
+        fps=n_timed / dt, wall_ms_per_frame=1e3 * dt / n_timed,
+        frames_ok=n_ok, ate_cm=100 * err, keyframes=slam.arena.n_keyframes(),
+        points=slam.arena.n_points(), chain_stats=dict(tr.chain_stats),
+        kf_wait_stats=dict(tr.kf_wait_stats),
+        worker_errors=slam.local_mapper.worker_errors,
+        track_ms_classic=track_ms(recs[:REALTIME_CLASSIC]),
+        track_ms_pipelined=track_ms(recs[n_warm:]),
+        tracking_stage_ms=stage_medians(tr.stage_ms),
+        mapping_stage_ms=stage_medians(slam.local_mapper.stage_ms),
+        builds=builds.n, launches=launches)
+    print(f"realtime 10a pipelined: {n_timed} frames {W}x{H} in {dt:.2f} s = "
+          f"{mono['fps']:.3f} fps ({mono['wall_ms_per_frame']:.1f} ms a frame, "
+          f"depth 2, async mapper); {n_ok}/{n_timed} OK, ATE {100 * err:.3f} "
+          f"cm, {mono['keyframes']} keyframes, {mono['points']} points; "
+          f"chain_stats {mono['chain_stats']}; kf_wait_stats "
+          f"{mono['kf_wait_stats']}; worker errors {mono['worker_errors']}; "
+          f"track ms median classic {mono['track_ms_classic']}, pipelined "
+          f"{mono['track_ms_pipelined']} (the frame's bookkeeping after its "
+          f"event wait); {builds.n} builds, launches {launches}; {card}",
+          flush=True)
+    print(f"realtime 10a tracking stages (median ms): "
+          f"{mono['tracking_stage_ms']}", flush=True)
+    print(f"realtime 10a mapping stages (median ms): "
+          f"{mono['mapping_stage_ms']}", flush=True)
+    check_mono("pipelined", slam, n_ok, err)
+    if tr.chain_stats["accept"] < 1:
+        fail(f"the chain accepted no frame: {tr.chain_stats}")
+    if slam.local_mapper.worker_errors:
+        fail(f"{slam.local_mapper.worker_errors} mapping worker errors")
+    check_build_launches("realtime 10a pipelined", launches, builds.n)
+
+    # One chain step on the finished map, from enqueue to its event wait.
+    with slam._lock, slam.arena.correction_lock, slam.arena.lock:
+        state, ids = tr.chain_bootstrap()
+    frame = tr.builder.build(frames[-1], REALTIME_FRAMES / 30.0)
+    fetch = ChainFetch(tr.programs.chain_out_size, 2, "cuda")
+
+    def chain_step():
+        out = tr.chain_enqueue(frame, state, tr.last_frame.packed, ids)[2]
+        return ChainFetch.wait(fetch.issue(out))
+    chain_step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    chain_step()
+    wall = 1e3 * (time.perf_counter() - t0)
+    prof = profile_device(torch, "one chain step (enqueue to the event wait, "
+                          "1024 slots, 4096-point block)", chain_step, wall)
+    if prof is not None:
+        mono["chain_step"] = dict(kernels=prof[0], device_ms=prof[1],
+                                  wall_ms=prof[2],
+                                  idle_share=1.0 - prof[1] / prof[2])
+
+    # 10a: the stream mode, on a fresh async System.
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    with BuildCount(frame_mod) as builds_s:
+        slam_s = System(cfg, device="cuda", async_mapping=True)
+        for i in range(n_warm):
+            slam_s.track_monocular(frames[i], i / 30.0)
+        dt_s, n_ok_s = timed(slam_s.track_monocular_stream(
+            items(n_warm, REALTIME_FRAMES)), slam_s)
+        slam_s.shutdown()
+    launches_s = dict(kernels.LAUNCHES)
+    err_s = ate(slam_s)
+    recs_s = slam_s.telemetry.records
+    stream = dict(fps=n_timed / dt_s, wall_ms_per_frame=1e3 * dt_s / n_timed,
+                  frames_ok=n_ok_s, ate_cm=100 * err_s,
+                  track_ms=track_ms(recs_s[n_warm:]),
+                  kf_wait_stats=dict(slam_s.tracker.kf_wait_stats),
+                  classic_phase5_ms_per_frame=classic_frame_ms,
+                  builds=builds_s.n, launches=launches_s)
+    print(f"realtime 10a stream: {n_timed} frames in {dt_s:.2f} s = "
+          f"{stream['fps']:.3f} fps ({stream['wall_ms_per_frame']:.1f} ms a "
+          f"frame, async mapper) against phase 5's classic synchronous "
+          f"{classic_frame_ms:.1f} ms a frame ({1e3 / classic_frame_ms:.3f} "
+          f"fps); {n_ok_s}/{n_timed} OK, ATE {100 * err_s:.3f} cm; track ms "
+          f"median {stream['track_ms']}; kf_wait_stats "
+          f"{stream['kf_wait_stats']}; {builds_s.n} builds, launches "
+          f"{launches_s}; {card}", flush=True)
+    check_mono("stream", slam_s, n_ok_s, err_s)
+    check_build_launches("realtime 10a stream", launches_s, builds_s.n)
+
+    # 10b: the loop circle through the chain.
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    with BuildCount(frame_mod) as builds_l:
+        slam_l, ate_l, n_tracked = loop_synthetic.run(
+            LOOP_FRAMES, None, 1000, W, H, device="cuda", verbose=True,
+            pipelined=True)
+    torch.cuda.synchronize()
+    launches_l = dict(kernels.LAUNCHES)
+    lc = slam_l.loop_closer
+    loop = dict(loops=lc.n_loops_closed, last_loop=lc.last_loop,
+                n_tracked=n_tracked, ate_cm=100 * ate_l,
+                epoch_violations=slam_l.tracker.epoch_violations,
+                pose_epoch=slam_l.arena.pose_epoch,
+                gba_applied=lc.n_gba_applied,
+                chain_stats=dict(slam_l.tracker.chain_stats),
+                wall_s=time.perf_counter() - t0, builds=builds_l.n,
+                launches=launches_l)
+    print(f"realtime 10b loop circle through the chain: {LOOP_FRAMES} frames "
+          f"in {loop['wall_s']:.1f} s; loops closed {loop['loops']} (last "
+          f"{loop['last_loop']}); {n_tracked}/{LOOP_FRAMES} tracked; ATE "
+          f"{100 * ate_l:.3f} cm; pose epoch {loop['pose_epoch']}, epoch "
+          f"violations {loop['epoch_violations']}; global BAs applied "
+          f"{loop['gba_applied']}; chain_stats {loop['chain_stats']}; "
+          f"{builds_l.n} builds, launches {launches_l}; {card}", flush=True)
+    if lc.n_loops_closed < 1:
+        fail("the pipelined loop circle closed no loop")
+    if n_tracked < MIN_LOOP_TRACKED:
+        fail(f"the pipelined loop circle tracked {n_tracked} of {LOOP_FRAMES}")
+    if not ate_l < MAX_LOOP_ATE_M:
+        fail(f"pipelined loop ATE {100 * ate_l:.3f} cm >= "
+             f"{100 * MAX_LOOP_ATE_M:g} cm")
+    if slam_l.tracker.epoch_violations:
+        fail("pose-epoch violation in the pipelined loop circle")
+    check_build_launches("realtime 10b loop", launches_l, builds_l.n)
+
+    # 10c: KITTI-width stereo through the chain.
+    root = os.path.dirname(os.path.abspath(__file__))
+    cfg_st = load_settings(os.path.join(root, "examples", "settings",
+                                        "kitti00-02.yaml"), Sensor.STEREO)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    with BuildCount(frame_mod) as builds_st:
+        slam_st, ate_st, span, span_gt = stereo_synthetic.run(
+            REALTIME_STEREO, None, device="cuda", verbose=True, cfg=cfg_st,
+            tex_scale=TEX_SCALE, pipelined=True)
+    torch.cuda.synchronize()
+    launches_st = dict(kernels.LAUNCHES)
+    recs_st = slam_st.telemetry.records
+    n_ok_st = sum(r["state"] == int(OK) for r in recs_st)
+    kf0 = slam_st.arena.kfs.get(slam_st.arena.kf_origin_id)
+    stereo = dict(n_ok=n_ok_st, ate_cm=100 * ate_st, span=span,
+                  span_gt=span_gt, keyframes=slam_st.arena.n_keyframes(),
+                  init_frame=None if kf0 is None else kf0.frame_id,
+                  chain_stats=dict(slam_st.tracker.chain_stats),
+                  track_ms=track_ms(recs_st), wall_s=time.perf_counter() - t0,
+                  builds=builds_st.n, launches=launches_st)
+    print(f"realtime 10c stereo through the chain: {REALTIME_STEREO} KITTI "
+          f"pairs in {stereo['wall_s']:.1f} s; initialized at frame "
+          f"{stereo['init_frame']}, {n_ok_st}/{REALTIME_STEREO} OK, ATE "
+          f"(SE3-aligned) {100 * ate_st:.3f} cm, span {span:.4f} m against "
+          f"{span_gt:.4f} m, {stereo['keyframes']} keyframes; chain_stats "
+          f"{stereo['chain_stats']}; track ms median {stereo['track_ms']}; "
+          f"{builds_st.n} builds, launches {launches_st}; {card}", flush=True)
+    if stereo["init_frame"] != 0:
+        fail(f"pipelined stereo initialized at frame {stereo['init_frame']}")
+    if n_ok_st < MIN_TRACKED_SHARE * REALTIME_STEREO:
+        fail(f"pipelined stereo tracked {n_ok_st} of {REALTIME_STEREO}")
+    if not ate_st < MAX_STEREO_ATE_M:
+        fail(f"pipelined stereo ATE {100 * ate_st:.3f} cm")
+    if slam_st.tracker.chain_stats["accept"] < 1:
+        fail(f"the stereo chain never engaged: {stereo['chain_stats']}")
+    check_build_launches("realtime 10c stereo", launches_st, builds_st.n)
+    wall_s = time.perf_counter() - t_phase
+    print(f"phase 10 in {wall_s:.1f} s", flush=True)
+    return dict(mono=mono, stream=stream, loop=loop, stereo=stereo,
+                wall_s=wall_s)
 
 
 def main() -> None:
@@ -1237,11 +1518,7 @@ def main() -> None:
         fail(f"{int(flips.sum())} angle-bin flips against the CPU path")
     print(f"frame 0 vs the CPU path: keypoints identical, {int(flips.sum())} "
           f"angle-bin flips, descriptors equal elsewhere", flush=True)
-    for name, want in (("fast_score_nms", N_FRAMES),
-                       ("gather_blur_describe", N_FRAMES), ("brief_pack", 0)):
-        if launches[name] != want:
-            fail(f"kernel {name} launched {launches[name]} times in the "
-                 f"slice's {N_FRAMES} frame builds, not {want}")
+    check_build_launches("the slice", launches, N_FRAMES)
     print(f"launches in the slice: {launches}", flush=True)
 
     # Where the time goes: kernels launched, device time, idle share.
@@ -1277,6 +1554,7 @@ def main() -> None:
         n_traj = len(open(os.path.join(out_dir, "CameraTrajectory.txt")).readlines())
     torch.cuda.synchronize()
     system_launches = dict(kernels.LAUNCHES)
+    classic_frame_ms = 1e3 * slam.timing_report()["median_s"]
     recs = slam.telemetry.records
     ok_state = int(TrackingState.OK)
     init_at = next((i for i, r in enumerate(recs) if r["state"] == ok_state),
@@ -1328,11 +1606,7 @@ def main() -> None:
     if tracked_share < MIN_TRACKED_SHARE:
         fail(f"system tracked {100 * tracked_share:.1f}% of the frames after "
              f"initialization (< {100 * MIN_TRACKED_SHARE:g}%)")
-    for name, want in (("fast_score_nms", len(recs)),
-                       ("gather_blur_describe", len(recs)), ("brief_pack", 0)):
-        if system_launches[name] != want:
-            fail(f"kernel {name} launched {system_launches[name]} times for "
-                 f"{len(recs)} frame builds in the system run, not {want}")
+    check_build_launches("the system run", system_launches, len(recs))
     pr = slam.place_rec
     if not pr.ready:
         fail("place recognition never became ready in the system run")
@@ -1356,6 +1630,8 @@ def main() -> None:
     # count only each phase.
     stereo = stereo_phase(torch, kernels, check_kernel_b, card)
     rgbd = rgbd_phase(torch, kernels, card)
+    # 10. The realtime modes; the counters count only each run.
+    realtime = realtime_phase(torch, kernels, card, classic_frame_ms)
     for name, key in (("fast_score_nms", "kernel_a"),
                       ("gather_blur_moments", "kernel_b")):
         r = stereo[key]
@@ -1374,13 +1650,18 @@ def main() -> None:
     by_phase = {"unfused_route": unfused_launches, "slice": launches,
                 "system": system_launches, "relocalization": reloc["launches"],
                 "loop": loop["launches"], "stereo": stereo["launches"],
-                "rgbd": rgbd["launches"]}
+                "rgbd": rgbd["launches"],
+                "realtime_pipelined": realtime["mono"]["launches"],
+                "realtime_stream": realtime["stream"]["launches"],
+                "realtime_loop": realtime["loop"]["launches"],
+                "realtime_stereo": realtime["stereo"]["launches"]}
     counter = dict(fast_score_nms="fast_score_nms",
                    gather_blur_moments="gather_blur_describe",
                    brief_pack="brief_pack", gather_patches="gather_patches")
     print(json.dumps({"relocalization": reloc}), flush=True)
     print(json.dumps({"loop": loop}), flush=True)
     print(json.dumps({"stereo": stereo, "rgbd": rgbd}, default=str), flush=True)
+    print(json.dumps({"realtime": realtime}, default=str), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": r["source"],

@@ -7,11 +7,15 @@ on the ported path is a hand-written CUDA kernel for Hopper (sm_90a) under
 csrc/, built at first use by utils/kernels.py; each kernel's plain PyTorch
 version lives beside its wrapper and serves CPU tensors.
 
-Ported so far: the monocular System (models/system.py): the front end
-(FrameBuilder.build), two-view initialization, the fused steady-state
-tracking step with its fallbacks, synchronous local mapping, and place
+Ported so far: the monocular, stereo and RGB-D System (models/system.py):
+the front end (FrameBuilder.build, build_stereo, build_rgbd), two-view or
+depth initialization, the fused steady-state tracking step with its
+fallbacks, local mapping inline or on its worker thread, place
 recognition with relocalization (vocab/, mapping/keyframe_db.py,
-models/place_recognition.py, solvers/pnp.py).
+models/place_recognition.py, solvers/pnp.py), loop closing with global BA
+(models/loop_closing.py), localization mode, and the realtime modes: the
+streaming mode and the pipelined device-state chain step
+(TrackPrograms.chain_step).
 """
 
 __version__ = "0.1.0"

@@ -5,14 +5,19 @@ correction -> essential graph -> global BA (the JAX package's
 examples/loop_synthetic.py).
 
     python -m orb_slam_system_tpu_torch.drivers.loop_synthetic \\
-        [n_frames] [out_dir] [--cpu] [--width W --height H --features N]
+        [n_frames] [out_dir] [--cpu] [--width W --height H --features N] \\
+        [--pipelined] [--async-mapping]
 
 The camera, the texture scale and the blur scale with the width
 (drivers/mono_synthetic.make_config; blur sigma 1.8 * width / 320 over
 +-4 * width / 320 taps), so 320x240 is the JAX example's scene exactly.
 Frames int(0.18 n) to int(0.53 n) are degraded, with default_rng(1) noise
 of sigma 4.5. Prints the loops closed, the frames tracked and the
-Sim3-aligned ATE RMSE, and writes the trajectories.
+Sim3-aligned ATE RMSE, and writes the trajectories. --pipelined tracks the
+circle through System.track_monocular_pipelined, so the loop correction
+lands with chain steps in flight on the old map (their results are
+dropped and the frames tracked classically); --async-mapping runs the
+mapper and the loop closer on the worker thread.
 """
 
 from __future__ import annotations
@@ -25,7 +30,8 @@ import numpy as np
 from orb_slam_system_tpu_torch.dataio import trajectory as traj_io
 from orb_slam_system_tpu_torch.dataio.synthetic import loop_trajectory
 from orb_slam_system_tpu_torch.drivers.mono_synthetic import (make_config,
-                                                              make_renderer)
+                                                              make_renderer,
+                                                              track_frames)
 from orb_slam_system_tpu_torch.models.system import System
 
 NOISE = 4.5
@@ -58,17 +64,19 @@ def render_sequence(cfg, n_frames: int):
 
 
 def run(n_frames=170, out_dir=None, n_features=400, width=320, height=240,
-        device="cuda", sync_gba=False, verbose=True):
-    """Track the circle through System.track_monocular. Returns (system,
-    ATE RMSE in m, frames tracked)."""
+        device="cuda", sync_gba=False, verbose=True, pipelined=False,
+        async_mapping=False):
+    """Track the circle through System.track_monocular (or, pipelined,
+    track_monocular_pipelined). Returns (system, ATE RMSE in m, frames
+    tracked)."""
     cfg = make_config(width, height, n_features)
     frames, poses = render_sequence(cfg, n_frames)
-    slam = System(cfg, device=device, sync_gba=sync_gba)
-    gt = {}
-    for i, (img, T) in enumerate(zip(frames, poses)):
-        ts = i / 30.0
-        slam.track_monocular(img, ts)
-        gt[ts] = (-T[:3, :3].T @ T[:3, 3]).astype(np.float64)
+    slam = System(cfg, device=device, sync_gba=sync_gba,
+                  async_mapping=async_mapping)
+    gt = {i / 30.0: (-T[:3, :3].T @ T[:3, 3]).astype(np.float64)
+          for i, T in enumerate(poses)}
+    items = ((img, i / 30.0) for i, img in enumerate(frames))
+    for i, _ in enumerate(track_frames(slam, items, pipelined)):
         if verbose:
             r = slam.telemetry.records[-1]
             print(f"frame {i:3d} state={slam.get_tracking_state().name:16s} "
@@ -103,9 +111,12 @@ def main():
     ap.add_argument("--features", type=int, default=400)
     ap.add_argument("--cpu", action="store_true",
                     help="run on the CPU (plain PyTorch paths, no kernels)")
+    ap.add_argument("--pipelined", action="store_true")
+    ap.add_argument("--async-mapping", action="store_true")
     a = ap.parse_args()
     run(a.n_frames, a.out_dir, a.features, a.width, a.height,
-        "cpu" if a.cpu else "cuda")
+        "cpu" if a.cpu else "cuda", pipelined=a.pipelined,
+        async_mapping=a.async_mapping)
 
 
 if __name__ == "__main__":

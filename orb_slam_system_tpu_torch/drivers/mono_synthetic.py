@@ -5,7 +5,11 @@ map size and time, writes KeyFrameTrajectory.txt / CameraTrajectory.txt /
 CameraTrajectoryKITTI.txt and reports the Sim3-aligned ATE RMSE.
 
     python -m orb_slam_system_tpu_torch.drivers.mono_synthetic \\
-        [n_frames] [out_dir] [--cpu] [--width W --height H --features N]
+        [n_frames] [out_dir] [--cpu] [--width W --height H --features N] \\
+        [--pipelined] [--async-mapping]
+
+--pipelined tracks through System.track_monocular_pipelined (depth 2),
+--async-mapping runs the local mapper on its worker thread.
 
 The camera scales with the width: fx = fy = 260 * width / 320 and the
 texture scale 220 * width / 320 (320x240 is the JAX example's size, 640x480
@@ -51,18 +55,28 @@ def render_sequence(cfg: SlamConfig, n_frames: int):
     return [renderer.render(T) for T in poses], poses
 
 
+def track_frames(slam, items, pipelined: bool):
+    """Feed (img, timestamp) items to the System: through
+    track_monocular_pipelined, or track_monocular frame by frame. Yields
+    Tcw (or None) per frame, in order."""
+    if pipelined:
+        return slam.track_monocular_pipelined(items)
+    return (slam.track_monocular(img, ts) for img, ts in items)
+
+
 def run(n_frames=80, out_dir=".", n_features=500, width=320, height=240,
-        device="cuda", verbose=True):
-    """Track the orbit through System.track_monocular. Returns
+        device="cuda", verbose=True, pipelined=False, async_mapping=False):
+    """Track the orbit through System.track_monocular (or, pipelined,
+    track_monocular_pipelined); out_dir None writes no files. Returns
     (system, ATE RMSE in m)."""
     cfg = make_config(width, height, n_features)
     frames, poses = render_sequence(cfg, n_frames)
-    slam = System(cfg, Sensor.MONOCULAR, device=device)
-    gt = {}
-    for i, (img, Tcw) in enumerate(zip(frames, poses)):
-        ts = i / 30.0
-        slam.track_monocular(img, ts)
-        gt[ts] = (-Tcw[:3, :3].T @ Tcw[:3, 3]).astype(np.float64)
+    slam = System(cfg, Sensor.MONOCULAR, device=device,
+                  async_mapping=async_mapping)
+    gt = {i / 30.0: (-T[:3, :3].T @ T[:3, 3]).astype(np.float64)
+          for i, T in enumerate(poses)}
+    items = ((img, i / 30.0) for i, img in enumerate(frames))
+    for i, _ in enumerate(track_frames(slam, items, pipelined)):
         if verbose:
             r = slam.telemetry.records[-1]
             print(f"frame {i:3d} state={slam.get_tracking_state().name:16s} "
@@ -70,10 +84,13 @@ def run(n_frames=80, out_dir=".", n_features=500, width=320, height=240,
                   f"mps={r['n_mps']} track={r['track_ms']:.1f} ms "
                   f"mapping={r['mapping_ms']:.1f} ms", flush=True)
     slam.shutdown()
-    os.makedirs(out_dir, exist_ok=True)
-    slam.save_keyframe_trajectory_tum(os.path.join(out_dir, "KeyFrameTrajectory.txt"))
-    slam.save_trajectory_tum(os.path.join(out_dir, "CameraTrajectory.txt"))
-    slam.save_trajectory_kitti(os.path.join(out_dir, "CameraTrajectoryKITTI.txt"))
+    if out_dir is not None:
+        os.makedirs(out_dir, exist_ok=True)
+        slam.save_keyframe_trajectory_tum(
+            os.path.join(out_dir, "KeyFrameTrajectory.txt"))
+        slam.save_trajectory_tum(os.path.join(out_dir, "CameraTrajectory.txt"))
+        slam.save_trajectory_kitti(
+            os.path.join(out_dir, "CameraTrajectoryKITTI.txt"))
     est = traj_io.frame_poses(slam.arena, slam.tracker.trajectory)
     rmse = traj_io.ate_rmse(est, gt)
     if verbose:
@@ -95,9 +112,12 @@ def main():
     ap.add_argument("--features", type=int, default=500)
     ap.add_argument("--cpu", action="store_true",
                     help="run on the CPU (plain PyTorch paths, no kernels)")
+    ap.add_argument("--pipelined", action="store_true")
+    ap.add_argument("--async-mapping", action="store_true")
     a = ap.parse_args()
     run(a.n_frames, a.out_dir, a.features, a.width, a.height,
-        "cpu" if a.cpu else "cuda")
+        "cpu" if a.cpu else "cuda", pipelined=a.pipelined,
+        async_mapping=a.async_mapping)
 
 
 if __name__ == "__main__":

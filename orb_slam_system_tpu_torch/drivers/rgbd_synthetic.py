@@ -7,12 +7,15 @@ localization mode, wipes the last frame's map associations and tracks
 `localize` more frames of the orbit on temporary visual-odometry points.
 
     python -m orb_slam_system_tpu_torch.drivers.rgbd_synthetic \\
-        [n_frames] [out_dir] [--cpu] [--features N] [--localize K]
+        [n_frames] [out_dir] [--cpu] [--features N] [--localize K] \\
+        [--pipelined] [--async-mapping]
 
 The camera is the JAX test's: 320x240, fx = fy = 260, bf = 260 x 0.08,
 th_depth 40 m, texture scale 220; the orbit has n_frames + K poses.
 Prints the frames tracked, the SE3-aligned ATE RMSE and the travelled span
 against the truth, and writes CameraTrajectory.txt (TUM format).
+--pipelined tracks the mapping frames through System.track_rgbd_pipelined
+(depth 2), --async-mapping runs the local mapper on its worker thread.
 """
 
 from __future__ import annotations
@@ -45,7 +48,8 @@ def make_config(width=320, height=240, n_features=500) -> SlamConfig:
 
 def run(n_frames=20, out_dir: Optional[str] = ".", n_features=500,
         device="cuda", verbose=True, cfg: Optional[SlamConfig] = None,
-        tex_scale: float = 220.0, localize: int = 0):
+        tex_scale: float = 220.0, localize: int = 0, pipelined=False,
+        async_mapping=False):
     """Track n_frames through System.track_rgbd, then (localize > 0)
     localization mode with the last frame's map associations wiped for
     `localize` more frames. cfg: the camera, make_config(n_features=...)
@@ -59,13 +63,14 @@ def run(n_frames=20, out_dir: Optional[str] = ".", n_features=500,
                             tex_scale=tex_scale)
     poses = orbit_trajectory(n_frames + localize, radius=0.35, depth=-2.0,
                              tilt=0.3)
-    slam = System(cfg, Sensor.RGBD, device=device)
+    slam = System(cfg, Sensor.RGBD, device=device, async_mapping=async_mapping)
     gt, loc_states, vo_used = {}, [], False
 
-    def track(i):
-        Tcw = poses[i]
-        slam.track_rgbd(r.render(Tcw),
-                        r.render_depth(Tcw) * cfg.depth_map_factor, i / 30.0)
+    def item(i):
+        return (r.render(poses[i]),
+                r.render_depth(poses[i]) * cfg.depth_map_factor, i / 30.0)
+
+    def report(i):
         if verbose:
             rec = slam.telemetry.records[-1]
             print(f"frame {i:3d} state={slam.get_tracking_state().name:16s} "
@@ -74,8 +79,11 @@ def run(n_frames=20, out_dir: Optional[str] = ".", n_features=500,
                   f"track={rec['track_ms']:.1f} ms "
                   f"mapping={rec['mapping_ms']:.1f} ms", flush=True)
 
-    for i in range(n_frames):
-        track(i)
+    items = (item(i) for i in range(n_frames))
+    track = (slam.track_rgbd_pipelined(items) if pipelined
+             else (slam.track_rgbd(*it) for it in items))
+    for i, _ in enumerate(track):
+        report(i)
         gt[i / 30.0] = (-poses[i][:3, :3].T @ poses[i][:3, 3]).astype(np.float64)
     est = traj_io.frame_poses(slam.arena, slam.tracker.trajectory)
     rmse = traj_io.ate_rmse(est, gt, with_scale=False)   # metric: SE3 only
@@ -84,7 +92,8 @@ def run(n_frames=20, out_dir: Optional[str] = ".", n_features=500,
         slam.activate_localization_mode()
         slam.tracker.last_frame.mp_ids[:] = -1   # the map goes out of view
         for i in range(n_frames, n_frames + localize):
-            track(i)
+            slam.track_rgbd(*item(i))
+            report(i)
             loc_states.append(slam.get_tracking_state() == TrackingState.OK)
             vo_used = vo_used or bool(slam.tracker.current.vo_points)
     slam.shutdown()
@@ -110,9 +119,12 @@ def main():
     ap.add_argument("--localize", type=int, default=0)
     ap.add_argument("--cpu", action="store_true",
                     help="run on the CPU (plain PyTorch paths, no kernels)")
+    ap.add_argument("--pipelined", action="store_true")
+    ap.add_argument("--async-mapping", action="store_true")
     a = ap.parse_args()
     run(a.n_frames, a.out_dir, a.features, "cpu" if a.cpu else "cuda",
-        localize=a.localize)
+        localize=a.localize, pipelined=a.pipelined,
+        async_mapping=a.async_mapping)
 
 
 if __name__ == "__main__":

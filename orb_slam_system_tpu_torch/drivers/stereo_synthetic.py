@@ -8,13 +8,15 @@ CameraTrajectory.txt (KITTI format) and KeyFrameTrajectory.txt.
 
     python -m orb_slam_system_tpu_torch.drivers.stereo_synthetic \\
         [n_frames] [out_dir] [--cpu] [--features N] \\
-        [--settings kitti00-02.yaml --tex-scale 440]
+        [--settings kitti00-02.yaml --tex-scale 440] \\
+        [--pipelined] [--async-mapping]
 
 By default the camera is the JAX example's: 320x240, fx = fy = 260, a
 0.12 m baseline, texture scale 220. --settings loads a reference settings
 file for Sensor.STEREO instead (e.g. examples/settings/kitti00-02.yaml:
 1241x376, bf 386.1448, 2000 features); the right camera sits bf / fx to
-the right.
+the right. --pipelined tracks through System.track_stereo_pipelined (depth
+2), --async-mapping runs the local mapper on its worker thread.
 """
 
 from __future__ import annotations
@@ -66,18 +68,21 @@ def metric_span(est, gt):
 
 def run(n_frames=50, out_dir: Optional[str] = ".", n_features=500,
         device="cuda", verbose=True, cfg: Optional[SlamConfig] = None,
-        tex_scale: float = 220.0):
-    """Track the orbit's pairs through System.track_stereo (cfg: the camera,
-    make_config(n_features=n_features) by default; out_dir None writes no
-    files). Returns (system, SE3-aligned ATE RMSE in m, span, true span)."""
+        tex_scale: float = 220.0, pipelined=False, async_mapping=False):
+    """Track the orbit's pairs through System.track_stereo (pipelined:
+    track_stereo_pipelined; cfg: the camera, make_config(n_features=
+    n_features) by default; out_dir None writes no files). Returns (system,
+    SE3-aligned ATE RMSE in m, span, true span)."""
     cfg = make_config(n_features=n_features) if cfg is None else cfg
     pairs, poses = render_pairs(cfg, n_frames, tex_scale)
-    slam = System(cfg, Sensor.STEREO, device=device)
-    gt = {}
-    for i, ((left, right), Tcw) in enumerate(zip(pairs, poses)):
-        ts = i / 30.0
-        slam.track_stereo(left, right, ts)
-        gt[ts] = (-Tcw[:3, :3].T @ Tcw[:3, 3]).astype(np.float64)
+    slam = System(cfg, Sensor.STEREO, device=device,
+                  async_mapping=async_mapping)
+    gt = {i / 30.0: (-T[:3, :3].T @ T[:3, 3]).astype(np.float64)
+          for i, T in enumerate(poses)}
+    items = ((left, right, i / 30.0) for i, (left, right) in enumerate(pairs))
+    track = (slam.track_stereo_pipelined(items) if pipelined
+             else (slam.track_stereo(*it) for it in items))
+    for i, _ in enumerate(track):
         if verbose:
             r = slam.telemetry.records[-1]
             print(f"frame {i:3d} state={slam.get_tracking_state().name:16s} "
@@ -111,10 +116,13 @@ def main():
     ap.add_argument("--tex-scale", type=float, default=220.0)
     ap.add_argument("--cpu", action="store_true",
                     help="run on the CPU (plain PyTorch paths, no kernels)")
+    ap.add_argument("--pipelined", action="store_true")
+    ap.add_argument("--async-mapping", action="store_true")
     a = ap.parse_args()
     cfg = load_settings(a.settings, Sensor.STEREO) if a.settings else None
     run(a.n_frames, a.out_dir, a.features, "cpu" if a.cpu else "cuda",
-        cfg=cfg, tex_scale=a.tex_scale)
+        cfg=cfg, tex_scale=a.tex_scale, pipelined=a.pipelined,
+        async_mapping=a.async_mapping)
 
 
 if __name__ == "__main__":

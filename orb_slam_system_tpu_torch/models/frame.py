@@ -57,6 +57,9 @@ class Frame:
     # UpdateLastFrame): {feature slot -> world position f32[3]} of features
     # matched to depth back-projections that are not in the map.
     vo_points: Optional[dict] = None
+    # (tracked, not tracked) close-depth features of a stereo or RGB-D frame
+    # that the pipelined chain step tracked, counted on the device.
+    chain_close_counts: Optional[tuple] = None
 
     def __post_init__(self):
         n = self.n_slots

@@ -2,12 +2,20 @@
 fusion, local BA, keyframe culling.
 
 Port of orb_slam_system_tpu/models/local_mapping.py (reference
-LocalMapping), synchronous: `process_pending` drains the keyframe queue
-inline after each tracked frame (the JAX System's default,
-async_mapping=False), in the JAX package's order (local_mapping.py:
-238-307): per queued keyframe process_new_keyframe, cull_map_points and
-tri_and_fuse (fusion only for the backlog's last keyframe); then one local
-BA and one keyframe-culling pass on the newest keyframe of the batch.
+LocalMapping). `process_pending` drains the keyframe queue in two phases
+(JAX local_mapping.py:238-307): expansion, per queued keyframe
+process_new_keyframe, cull_map_points and tri_and_fuse (fusion only for the
+backlog's last keyframe); then refinement, one local BA and one
+keyframe-culling pass on the newest keyframe of the batch, run even when
+the tracker refilled the queue meanwhile, and the loop-closer hand-off.
+The System calls it inline after each tracked frame (synchronous mapping,
+the default), or `start_async` runs it on a worker thread (the reference's
+LocalMapping thread): every stage holds `arena.lock`, released around its
+device fetch (`arena.unlocked()`) so the tracker's host work goes on
+meanwhile; `_busy` and `_expanding` tell the tracker's keyframe admission
+where the worker is (models/tracking_init.py). The worker and the tracker
+both queue their device work on the default CUDA stream, so it runs in
+one order on the card.
 
 Triangulation + fusion run as two chained device steps with one packed
 fetch (ops/mapper_fused.py), local BA as one packed fetch
@@ -15,12 +23,15 @@ fetch (ops/mapper_fused.py), local BA as one packed fetch
 processed keyframe is indexed for place recognition (BoW, keyframe
 database) when a PlaceRecognition service is given, and every keyframe of
 the batch still alive after culling is handed to the loop closer
-(`loop_closer`, set by the System) in insertion order. Not in this port:
-the async worker thread.
+(`loop_closer`, set by the System) in insertion order.
 """
 
 from __future__ import annotations
 
+import sys
+import threading
+import time
+import traceback
 from collections import deque
 
 import numpy as np
@@ -73,57 +84,166 @@ class LocalMapper:
         # (reference LocalMapping.cc:137-151 cnThObs).
         self.cull_obs_th = 2 if cfg.sensor == Sensor.MONOCULAR else 3
         self.stage_ms = StageTimer()
+        # The worker thread (start_async) and what the tracker reads of it:
+        # _busy while it processes a batch; _expanding from the pop of a
+        # queued keyframe until the batch's triangulation + fusion landed
+        # (the tracker's backpressure drain may release there and let local
+        # BA and culling overlap the next frames, as the reference's
+        # concurrent LocalMapping thread does).
+        self._thread = None
+        self._cv = None
+        self._stop = False
+        self._busy = False
+        self._expanding = False
+        self.worker_errors = 0
 
     def _t(self, a) -> torch.Tensor:
         return to_device(a, self.device)
 
-    # ---- queue ---------------------------------------------------------------
+    # ---- queue and thread protocol (reference :305-458) ---------------------
 
     def insert_keyframe(self, kf_id: int):
         self.queue.append(kf_id)
+        cv = self._cv
+        if cv is not None:
+            with cv:
+                cv.notify()
 
     def accepting(self) -> bool:
-        return len(self.queue) == 0
+        return len(self.queue) == 0 and not self._busy
+
+    @property
+    def is_async(self) -> bool:
+        """True while the worker thread runs."""
+        return self._thread is not None
+
+    def interrupt_ba(self):
+        """Reference mbAbortBA, which the tracker raises for a keyframe it
+        wants into a busy mapper. The local BA here is one device solve that
+        cannot stop midway, so there is nothing to interrupt: the batch
+        structure of process_pending does the catching up."""
 
     def reset(self):
+        """Drain the worker (callers must not hold arena.lock), then drop
+        the queue and the recent points."""
+        self.flush()
         self.queue.clear()
         self.recent_points.clear()
 
+    def start_async(self):
+        """Run process_pending on a worker thread (the reference's
+        LocalMapping thread) until stop_async."""
+        if self._thread is not None and self._thread.is_alive():
+            return
+        self._stop = False
+        self._cv = threading.Condition()
+        self._thread = threading.Thread(target=self._worker, daemon=True,
+                                        name="local_mapping")
+        self._thread.start()
+
+    def stop_async(self):
+        t = self._thread
+        if t is None:
+            return
+        self._stop = True
+        with self._cv:
+            self._cv.notify()
+        t.join()
+        self._thread = None
+        self._cv = None
+
+    def flush(self, timeout: float = 60.0):
+        """Block until the worker has drained the queue (no worker: return
+        at once). Raises on timeout rather than let a caller (reset) clear
+        the queue under a keyframe still in a stage. The caller must not
+        hold arena.lock: the worker's stages wait for it."""
+        if self._thread is None:
+            return
+        t0 = time.monotonic()
+        while (self.queue or self._busy) and time.monotonic() - t0 < timeout:
+            time.sleep(0.002)
+        if self.queue or self._busy:
+            raise RuntimeError(
+                f"local-mapping flush timed out after {timeout:.0f} s "
+                f"(queue {len(self.queue)}, busy {self._busy}): is arena.lock "
+                f"held by the caller?")
+
+    def _worker(self):
+        while True:
+            with self._cv:
+                while not self.queue and not self._stop:
+                    self._cv.wait(0.05)
+            if self._stop and not self.queue:
+                return
+            try:
+                self._busy = True
+                self._expanding = True
+                self.process_pending()
+            except Exception:  # noqa: BLE001 - the thread must survive
+                # A dead worker would stop draining the queue and stall the
+                # next flush; count the error, report it, drop the keyframe
+                # and keep serving.
+                self.worker_errors += 1
+                print("[local_mapping] worker error (keyframe dropped):",
+                      file=sys.stderr)
+                traceback.print_exc()
+            finally:
+                self._busy = False
+                self._expanding = False
+
     def process_pending(self):
         """Drain the keyframe queue (reference Run / ProcessKeyFrames).
-        Per-stage wall time goes to self.stage_ms."""
+        Per-stage wall time goes to self.stage_ms. _expanding is cleared
+        however it ends: stuck True, every later backpressure drain would
+        wait out its whole timeout."""
+        try:
+            self._process_pending()
+        finally:
+            self._expanding = False
+
+    def _process_pending(self):
         t = self.stage_ms
+        lk = self.arena.lock
         while self.queue:
+            # Expansion. _expanding goes up before the pop: from the pop
+            # until the triangulation lands the queue no longer shows the
+            # keyframe.
+            self._expanding = True
             batch: list[KeyFrameRec] = []
             while self.queue:
                 kf = self.arena.kfs.get(self.queue.popleft())
                 if kf is None:
                     continue
-                with t.stage("process_new_kf"):
+                with t.stage("process_new_kf"), lk:
                     self.process_new_keyframe(kf)
-                with t.stage("cull_points"):
+                with t.stage("cull_points"), lk:
                     self.cull_map_points(kf)
                 # Fusion joins only for the backlog's last keyframe
                 # (reference Run runs SearchInNeighbors iff the queue is
                 # empty).
-                with t.stage("tri_fuse"):
+                with t.stage("tri_fuse"), lk:
                     self.tri_and_fuse(kf, do_fuse=not self.queue)
                 batch.append(kf)
+            self._expanding = False
             if not batch:
                 continue
+            # Refinement: one local BA and keyframe cull per batch, on its
+            # newest keyframe, even if the queue refilled meanwhile (gated
+            # on an empty queue they starved under ~1 keyframe a frame in
+            # the JAX package's endurance runs).
             kf = batch[-1]
             if self.arena.n_keyframes() > 2 and kf.id in self.arena.kfs:
-                with t.stage("local_ba"):
+                with t.stage("local_ba"), lk:
                     self.local_ba(kf)
             if kf.id in self.arena.kfs:
-                with t.stage("cull_kfs"):
+                with t.stage("cull_kfs"), lk:
                     self.cull_keyframes(kf)
             # Hand-off to loop closing (reference Run :72): every batch
             # keyframe still alive, in insertion order.
             if self.loop_closer is not None:
                 for bkf in batch:
                     if bkf.id in self.arena.kfs:
-                        with t.stage("loop_closer"):
+                        with t.stage("loop_closer"), lk:
                             self.loop_closer.process(bkf.id)
 
     def process_new_keyframe(self, kf: KeyFrameRec):
@@ -324,7 +444,7 @@ class LocalMapper:
                     t(np.stack([k.camera_center() for k in targets]).astype(np.float32)),
                     t(np.ones(T, bool)),
                     *(t(a) for a in A), *(t(a) for a in B))
-        with st.stage("tri_fuse_device"):
+        with st.stage("tri_fuse_device"), self.arena.unlocked():
             tri_dev = mapper_fused.tri_step(*tri_args)
             if do_fuse:
                 buf = mapper_fused.fuse_step(tri_dev, *fuse_args)
@@ -470,7 +590,7 @@ class LocalMapper:
                     t(self._stack(dkfs, lambda k: k.feats.valid, n2)),
                     t(self._stack(dkfs, lambda k: k.feats.octave, n2)),
                     t(np.zeros((M, n2), bool)))
-        with st.stage("fuse_device"):
+        with st.stage("fuse_device"), self.arena.unlocked():
             idx2_all = matching.search_by_projection_set_batch(
                 *args).cpu().numpy()
         with st.stage("fuse_merge"):
@@ -530,7 +650,7 @@ class LocalMapper:
         prob, cam_index, cam_fixed, pt_index, edge_refs = prep
         cam = self.cfg.camera
         C, P, E = prob.Tcw.shape[0], prob.points.shape[0], prob.e_cam.shape[0]
-        with self.stage_ms.stage("ba_device"):
+        with self.stage_ms.stage("ba_device"), self.arena.unlocked():
             buf = local_bundle_adjustment_packed(
                 prob, cam.fx, cam.fy, cam.cx, cam.cy).cpu().numpy()
             Tcw_new, X_new, inlier = unpack_local_ba(buf, C, P, E)

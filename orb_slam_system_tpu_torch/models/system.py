@@ -17,13 +17,35 @@ thread unless `sync_gba` is set, and a finished solve is applied after the
 next frame's mapping, or at shutdown. Trajectory export in the reference's
 TUM, keyframe-TUM and KITTI formats.
 
-Not in this port yet: the async mapper, the streaming and pipelined modes,
-the viewer, map save/load.
+The realtime modes (JAX system.py:197-609):
+  * `async_mapping=True` runs the local mapper (and the loop closer it
+    hands keyframes to) on a worker thread, the reference's LocalMapping
+    thread; keyframes are admitted to its bounded queue, with a
+    backpressure drain when it is full (models/tracking_init.py);
+  * `track_monocular_stream` keeps one frame in flight: frame i+1 is built
+    before frame i is tracked, with the same results as track_monocular;
+  * `track_monocular_pipelined`, `track_stereo_pipelined` and
+    `track_rgbd_pipelined` keep `depth` frames in flight through the
+    device-state chain step (TrackPrograms.chain_step): each step is
+    enqueued on the current stream, its packed result copied into a
+    pinned host buffer behind it (ChainFetch), and the frame's bookkeeping
+    runs `depth` frames later after a wait on that copy's CUDA event. A
+    weak chain result, a frame enqueued before a loop correction or a
+    global-BA apply (the pose epoch moved), or a tracker that left OK sends
+    the frame and those after it through the classic path.
+Every Track* call and state getter takes the System's RLock; the lock
+order is System._lock > arena.correction_lock > arena.lock. The mapper
+worker and the global-BA thread queue their device work on the default
+CUDA stream, as tracking does, so the card runs it in one order.
+
+Not in this port yet: the viewer, map save/load.
 """
 
 from __future__ import annotations
 
+import threading
 import time
+from collections import deque
 from typing import Optional, Union
 
 import numpy as np
@@ -36,6 +58,7 @@ from orb_slam_system_tpu_torch.mapping.arena import MapArena
 from orb_slam_system_tpu_torch.models.local_mapping import LocalMapper
 from orb_slam_system_tpu_torch.models.loop_closing import LoopCloser
 from orb_slam_system_tpu_torch.models.place_recognition import PlaceRecognition
+from orb_slam_system_tpu_torch.models.track_device import ChainFetch
 from orb_slam_system_tpu_torch.models.tracking import Tracker
 from orb_slam_system_tpu_torch.utils.metrics import Telemetry
 from orb_slam_system_tpu_torch.utils.precision import set_f32_policy
@@ -46,7 +69,7 @@ class System:
     def __init__(self, settings: Union[str, SlamConfig],
                  sensor: Sensor = Sensor.MONOCULAR, device="cuda",
                  vocabulary_path: Optional[str] = None,
-                 sync_gba: bool = False):
+                 sync_gba: bool = False, async_mapping: bool = False):
         set_f32_policy()
         self.sensor = Sensor(sensor)
         self.cfg = (load_settings(settings, self.sensor)
@@ -70,6 +93,12 @@ class System:
         # global BAs applied, track_ms, mapping_ms (host clock; both end in
         # a device fetch).
         self.telemetry = Telemetry()
+        # Reentrant: the Track* entry points and state getters may be called
+        # from several threads (reference mMutexMode / mMutexState).
+        self._lock = threading.RLock()
+        self.async_mapping = async_mapping
+        if async_mapping:
+            self.local_mapper.start_async()
 
     def track_monocular(self, img: np.ndarray, timestamp: float):
         """Reference TrackMonocular. img: grayscale or RGB (converted);
@@ -107,13 +136,25 @@ class System:
         return rgb_to_gray(img, self.cfg.camera.rgb) if img.ndim == 3 else img
 
     def _track(self, grab, timestamp: float, *args):
-        """Track one frame through grab(*args), drain the mapper, apply a
-        finished global BA and record the frame's telemetry."""
-        t0 = time.perf_counter()
-        Tcw = grab(*args)
-        t1 = time.perf_counter()
-        self.local_mapper.process_pending()
+        """Track one frame through grab(*args) under the System's lock, then
+        _after_frame."""
+        with self._lock:
+            t0 = time.perf_counter()
+            Tcw = grab(*args)
+            self._after_frame(timestamp, t0, time.perf_counter())
+            return Tcw
+
+    def _pump_mapping(self):
+        """Synchronous mapping: drain the keyframe queue here (the worker
+        does it in async mode). Then apply a finished global BA."""
+        if not self.async_mapping:
+            self.local_mapper.process_pending()
         self.loop_closer.poll_gba()
+
+    def _after_frame(self, timestamp: float, t0: float, t1: float):
+        """Pump mapping after a frame tracked from t0 to t1 (host clock) and
+        record its telemetry."""
+        self._pump_mapping()
         t2 = time.perf_counter()
         self._timings.append(t2 - t0)
         self.telemetry.emit(
@@ -124,7 +165,202 @@ class System:
             loops=self.loop_closer.n_loops_closed,
             gba_applied=self.loop_closer.n_gba_applied,
             track_ms=(t1 - t0) * 1e3, mapping_ms=(t2 - t1) * 1e3)
-        return Tcw
+
+    def track_monocular_prebuilt(self, frame):
+        """Track a frame built by tracker.build_frame (or any builder of this
+        camera). Returns Tcw (4x4) or None."""
+        self._check_sensor(Sensor.MONOCULAR, "track_monocular_prebuilt")
+        return self._track(self.tracker.grab_prebuilt, frame.timestamp, frame)
+
+    def track_monocular_stream(self, frames):
+        """Track an iterable of (img, timestamp) with one frame in flight:
+        frame i+1's extraction is enqueued before frame i is tracked, so the
+        card builds the next frame while the host tracks this one. The
+        results are those of calling track_monocular on each frame in turn
+        (a prebuilt frame is built again when the tracker left OK, since
+        the builder depends on the state). Yields Tcw (or None) per frame;
+        a frame's track_ms includes the next frame's enqueue."""
+        self._check_sensor(Sensor.MONOCULAR, "track_monocular_stream")
+        tr = self.tracker
+        it = iter(frames)
+        pending = None          # (built frame, gray image, timestamp)
+        while True:
+            if pending is None:
+                nxt = next(it, None)
+                if nxt is None:
+                    return
+                img, ts = self._gray(nxt[0]), nxt[1]
+                with self._lock:
+                    frame = tr.build_frame(img, ts)
+            else:
+                frame, img, ts = pending
+                pending = None
+                if tr.state != TrackingState.OK:
+                    with self._lock:
+                        frame = tr.build_frame(img, ts)
+            with self._lock:
+                t0 = time.perf_counter()
+                if tr.state == TrackingState.OK:
+                    nxt = next(it, None)
+                    if nxt is not None:
+                        img2, ts2 = self._gray(nxt[0]), nxt[1]
+                        pending = (tr.build_frame(img2, ts2), img2, ts2)
+                Tcw = tr.grab_prebuilt(frame)
+                self._after_frame(ts, t0, time.perf_counter())
+            yield Tcw
+
+    def track_monocular_pipelined(self, frames, resync_every: int = 0,
+                                  depth: int = 2):
+        """Track an iterable of (img, timestamp) with `depth` frames in
+        flight through the device-state chain step (module docstring).
+        The chain engages on a mature map in steady state; everything else,
+        and every weak chain result, goes through the classic path.
+        resync_every > 0 rebuilds the device state from the host every
+        that many frames. Chain frames may differ from track_monocular's
+        within matching tolerance (device f32 projection against the host
+        path's), so the trajectory is of the same quality, not bit-equal.
+        Yields Tcw (or None) per frame, in order."""
+        self._check_sensor(Sensor.MONOCULAR, "track_monocular_pipelined")
+        tr = self.tracker
+        return self._track_pipelined(
+            frames, lambda it: tr.builder.build(self._gray(it[0]), it[1]),
+            lambda it: tr.build_frame(self._gray(it[0]), it[1]),
+            resync_every, depth)
+
+    def track_stereo_pipelined(self, frames, resync_every: int = 0,
+                               depth: int = 2):
+        """track_monocular_pipelined over (left, right, timestamp) rectified
+        pairs: stereo observations enter the chain's pose LM through
+        u_right, and the keyframe rule's close-point counts are made on the
+        card."""
+        self._check_sensor(Sensor.STEREO, "track_stereo_pipelined")
+        tr = self.tracker
+
+        def build(it):
+            return tr.builder.build_stereo(self._gray(it[0]), self._gray(it[1]),
+                                           it[2])
+        return self._track_pipelined(frames, build, build, resync_every, depth)
+
+    def track_rgbd_pipelined(self, frames, resync_every: int = 0,
+                             depth: int = 2):
+        """track_monocular_pipelined over (img, depth map, timestamp)."""
+        self._check_sensor(Sensor.RGBD, "track_rgbd_pipelined")
+        tr = self.tracker
+
+        def build(it):
+            return tr.builder.build_rgbd(self._gray(it[0]), it[1], it[2])
+        return self._track_pipelined(frames, build, build, resync_every, depth)
+
+    def _track_pipelined(self, items, build_steady, build_classic,
+                         resync_every: int, depth: int):
+        """The pipelined loop (JAX system.py:336-609): build_steady makes a
+        chain frame, build_classic one for the classic path (monocular:
+        the 2x-features builder until initialized)."""
+        tr = self.tracker
+        depth = max(1, int(depth))
+        fetch = ChainFetch(tr.programs.chain_out_size, depth + 1, self.device)
+        pendq: deque = deque()   # (frame, block ids, item, ticket), oldest first
+        state = None             # (T_prev, T_last, assoc) on the device
+        state_epoch = -1         # arena.pose_epoch the state was made in
+        prev_ids = prev_packed = None
+
+        def classic(frame):
+            return self._track(tr.grab_prebuilt, frame.timestamp, frame)
+
+        def process_oldest():
+            """(Tcw, broke) of the oldest frame in flight. broke: the device
+            state is gone, and the frames enqueued on it must be tracked
+            again classically."""
+            nonlocal state
+            frame, ids, _, ticket = pendq.popleft()
+            broke = False
+            with tr.stage_ms.stage("chain_fetch_wait"):
+                host_out = fetch.wait(ticket)
+            # correction_lock over the frame's whole commit, as track() has.
+            with self._lock, tr.arena.correction_lock:
+                t0 = time.perf_counter()
+                with tr.arena.lock:
+                    # A correction since the enqueue: the result lives in
+                    # the old map frame.
+                    ok = (None if tr.arena.pose_epoch != state_epoch
+                          else tr.chain_process(frame, ids, host_out))
+                    if ok is True and tr.arena.pose_epoch != state_epoch:
+                        ok = None
+                if ok is True:
+                    with tr.arena.lock:
+                        tr.chain_finish(frame, True)
+                    Tcw = None if frame.Tcw is None else frame.Tcw.copy()
+                else:
+                    # Classic re-track (track() takes arena.lock itself, so
+                    # an internal reset can release it to flush the worker).
+                    # None: also drop the state and the frames on it.
+                    if ok is None:
+                        state = None
+                        broke = True
+                    Tcw = tr.grab_prebuilt(frame)
+                self._after_frame(frame.timestamp, t0, time.perf_counter())
+                if tr.state != TrackingState.OK:
+                    state = None
+                    broke = True
+            return Tcw, broke
+
+        def drain_classic():
+            """Track every frame in flight classically, in order (their steps
+            ran on a dropped state); a frame is built again with the
+            classic builder when the tracker left OK. Yields each pose."""
+            while pendq:
+                frame, _, item, _ = pendq.popleft()
+                if tr.state != TrackingState.OK:
+                    with self._lock:
+                        frame = build_classic(item)
+                yield classic(frame)
+
+        def drain_all():
+            """Process every frame in flight, in order; once one breaks, the
+            rest go through drain_classic. Yields each pose."""
+            while pendq:
+                Tcw, broke = process_oldest()
+                yield Tcw
+                if broke:
+                    yield from drain_classic()
+
+        for item in items:
+            with self._lock:
+                chain_ok = tr.chain_ready()
+            if pendq and (state is None or not chain_ok):
+                # The state was dropped or the chain disengaged with frames
+                # in flight: finish them first, so the bootstrap below starts
+                # from the frame whose packed buffer becomes packed_last.
+                yield from drain_all()
+                with self._lock:
+                    chain_ok = chain_ok and tr.chain_ready()
+            if not chain_ok:
+                with self._lock:
+                    frame = build_classic(item)
+                state = None
+                yield classic(frame)
+                continue
+            with self._lock, tr.stage_ms.stage("chain_build"):
+                frame = build_steady(item)
+            # correction_lock: never enqueue on a half-corrected map.
+            with (self._lock, tr.arena.correction_lock, tr.arena.lock,
+                  tr.stage_ms.stage("chain_enqueue")):
+                if state is None:
+                    state, prev_ids = tr.chain_bootstrap()
+                    state_epoch = tr.arena.pose_epoch
+                    prev_packed = tr.last_frame.packed
+                ids, state, packed_out = tr.chain_enqueue(
+                    frame, state, prev_packed, prev_ids)
+                if resync_every and frame.id % resync_every == 0:
+                    state = None     # rebuilt from the host next frame
+            pendq.append((frame, ids, item, fetch.issue(packed_out)))
+            prev_ids, prev_packed = ids, frame.packed
+            if len(pendq) > depth:
+                Tcw, broke = process_oldest()
+                yield Tcw
+                if broke:
+                    yield from drain_classic()
+        yield from drain_all()
 
     def activate_localization_mode(self):
         """Reference ActivateLocalizationMode: tracking goes on, no
@@ -139,11 +375,15 @@ class System:
     DeactivateLocalizationMode = deactivate_localization_mode
 
     def reset(self):
-        self.tracker.reset()
+        with self._lock:
+            self.tracker.reset()
 
     def shutdown(self):
-        """Reference Shutdown: drain the mapping queue, wait for a global
-        BA in flight and apply it."""
+        """Reference Shutdown: drain the mapping queue (and stop the worker
+        in async mode), wait for a global BA in flight and apply it."""
+        if self.async_mapping:
+            self.local_mapper.flush()
+            self.local_mapper.stop_async()
         self.local_mapper.process_pending()
         self.loop_closer.gba.join()
         self.loop_closer.poll_gba()
@@ -152,19 +392,22 @@ class System:
     Shutdown = shutdown
 
     def get_tracking_state(self) -> TrackingState:
-        return self.tracker.state
+        with self._lock:
+            return self.tracker.state
 
     def get_tracked_map_points(self):
-        cur = self.tracker.current
-        if cur is None:
-            return []
-        return [int(m) for m in cur.mp_ids if m >= 0]
+        with self._lock:
+            cur = self.tracker.current
+            if cur is None:
+                return []
+            return [int(m) for m in cur.mp_ids if m >= 0]
 
     def get_tracked_keypoints_un(self):
-        cur = self.tracker.current
-        if cur is None:
-            return np.zeros((0, 2), np.float32)
-        return cur.feats.xy_und[cur.feats.valid]
+        with self._lock:
+            cur = self.tracker.current
+            if cur is None:
+                return np.zeros((0, 2), np.float32)
+            return cur.feats.xy_und[cur.feats.valid]
 
     def save_trajectory_tum(self, path: str):
         traj_io.save_trajectory_tum(path, self.arena, self.tracker.trajectory)

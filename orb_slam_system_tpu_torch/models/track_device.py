@@ -1,10 +1,9 @@
 """Fused per-frame tracking programs on the device.
 
 Port of orb_slam_system_tpu/models/track_device.py (motion_step,
-localmap_step, fused_step; the pipelined chain_step ports later). The
-tracker runs fused_step on a steady frame and falls back to motion_step
-(then a reference-keyframe match) and localmap_step when the fused result
-is weak:
+localmap_step, fused_step and the pipelined chain_step). The tracker runs
+fused_step on a steady frame and falls back to motion_step (then a
+reference-keyframe match) and localmap_step when the fused result is weak:
 
   * motion stage: motion-model projection search (narrow and widened window
     from ONE distance matrix, the reference's `if(nmatches<20) search again
@@ -15,6 +14,15 @@ is weak:
 
 Each host wrapper uploads its per-frame inputs once and fetches ONE packed
 f32 result, with the JAX package's argument lists and outputs.
+
+chain_step is the pipelined mode's step: the pose state (T_prev, T_last)
+and the association of the last frame's slots into the local-map block
+stay on the device from one step to the next, so the host enqueues frame
+k+1's step before it has read frame k's result. The step reads nothing
+back to the host (no .item(), .cpu(), bool() of a tensor, boolean
+indexing or blocking upload); ChainFetch copies its packed result into a
+pinned host buffer behind it, and the host waits on that copy's CUDA event
+alone, `depth` frames later (models/system.py, _track_pipelined).
 """
 
 from __future__ import annotations
@@ -29,6 +37,7 @@ from orb_slam_system_tpu_torch.ops import frustum as frustum_ops
 from orb_slam_system_tpu_torch.ops import matching
 from orb_slam_system_tpu_torch.ops.hamming import distance_matrix
 from orb_slam_system_tpu_torch.solvers.pose_opt import pose_optimization
+from orb_slam_system_tpu_torch.utils import lie
 from orb_slam_system_tpu_torch.utils.interop import (local_block_from_numpy,
                                                      to_device)
 from orb_slam_system_tpu_torch.utils.precision import set_f32_policy
@@ -196,6 +205,79 @@ class TrackPrograms:
                          cur_valid.sum().to(f), n_in2.to(f)]),
         ])
 
+    def _chain(self, T_prev, T_last, assoc_in, lm_remap, packed_last,
+               packed_cur, lm_pos, lm_normal, lm_mind, lm_maxd, lm_desc,
+               lm_valid, th):
+        """The device-state step (JAX track_device.py chain_step): from
+        (T_prev, T_last, assoc) it derives velocity = T_last T_prev^-1,
+        Tcw_pred = velocity T_last, pos_last = lm_pos[assoc] and the
+        projection on the device, runs the motion and local-map cores, and
+        carries the association to the current frame in the host
+        bookkeeping's order: motion matches attach, local-map matches
+        overwrite (last writer wins), final outliers detach.
+
+        lm_remap i64[P] maps the previous step's block rows to this block's
+        (-1: the point left the block). Both poses are projected back onto
+        SE(3) first: the state loops device to device, and without the
+        projection the rotation's f32 rounding compounds through the
+        transpose inverse (det(R) fell to 0.59 within ~12 frames in the JAX
+        package). Returns (T_last projected, T_cur, assoc_out i64[N],
+        packed_out f32[16 + N + 2P + 6]): T_cur, assoc_out, visible and
+        already-local per block row, then n_in1, n_matched, n_valid_cur,
+        n_in2 and, for an 18-column frame, the close-point counts of the
+        keyframe rule (tracked, not tracked; 0 for a monocular frame)."""
+        cam = self.cfg.camera
+        dev = assoc_in.device
+        n = assoc_in.shape[0]
+        P = lm_pos.shape[0]
+        minus1 = torch.full_like(assoc_in, -1)
+        assoc = torch.where(assoc_in >= 0, lm_remap[assoc_in.clamp(0, P - 1)],
+                            minus1)
+        T_prev = lie.se3_project(T_prev)
+        T_last = lie.se3_project(T_last)
+        velocity = T_last @ lie.se3_inv(T_prev)
+        Tcw_pred = velocity @ T_last
+        pos_last = lm_pos[assoc.clamp(0, P - 1)]
+        Xc = pos_last @ Tcw_pred[:3, :3].T + Tcw_pred[:3, 3]
+        z = Xc[:, 2]
+        zs = torch.where(z.abs() < 1e-9, torch.full_like(z, 1e-9), z)
+        proj = torch.stack([cam.fx * Xc[:, 0] / zs + cam.cx,
+                            cam.fy * Xc[:, 1] / zs + cam.cy], dim=1)
+        ok = (assoc >= 0) & (z > 0)
+        T1, best_j, matched, inlier1, n_in1, cur_valid = self.motion_core(
+            proj, ok, pos_last, packed_last, packed_cur, Tcw_pred, th)
+        good = matched & inlier1
+        # As in _fused: the good best_j are unique, the rest dropped.
+        safe_j = torch.where(good, best_j, torch.full_like(best_j, n))
+        Xw_pre = _drop_set(n, safe_j, pos_last, 0.0, dev)
+        ones = torch.ones(n, dtype=torch.bool, device=dev)
+        ok_pre = _drop_set(n, safe_j, ones, False, dev)
+        ll = torch.where(good & (assoc >= 0), assoc, torch.full_like(assoc, P))
+        already_local = _drop_set(P, ll, ones, False, dev)
+        T2, idx2, visible, inlier2, n_in2 = self.localmap_core(
+            lm_pos, lm_normal, lm_mind, lm_maxd, lm_desc,
+            lm_valid & ~already_local, Xw_pre, ok_pre, packed_cur, ok_pre, T1)
+        win1 = _scatter_last_wins(n, best_j, good, n)
+        a1 = torch.where(win1 >= 0, assoc[win1.clamp_min(0)], minus1)
+        win2 = _scatter_last_wins(n, idx2, idx2 >= 0, P)
+        assoc_out = torch.where(win2 >= 0, win2, a1)
+        assoc_out = torch.where(inlier2, assoc_out, minus1)
+        f = torch.float32
+        if packed_cur.shape[1] >= 18:
+            depth = packed_cur[:, 17]
+            close = cur_valid & (depth > 0.0) & (depth < float(self.cfg.th_depth))
+            tracked = assoc_out >= 0
+            n_close = torch.stack([(close & tracked).sum().to(f),
+                                   (close & ~tracked).sum().to(f)])
+        else:
+            n_close = torch.zeros(2, dtype=f, device=dev)
+        packed_out = torch.cat([
+            T2.reshape(-1), assoc_out.to(f), visible.to(f), already_local.to(f),
+            torch.stack([n_in1.to(f), matched.sum().to(f),
+                         cur_valid.sum().to(f), n_in2.to(f)]),
+            n_close])
+        return T_last, T2, assoc_out, packed_out
+
     # ---- host wrappers: one upload, one fetch, numpy outputs ---------------
 
     def _tensor(self, a):
@@ -280,3 +362,77 @@ class TrackPrograms:
         n_valid_cur = int(out[o + 2]); n_in2 = int(out[o + 3])
         return (T2, best_j, matched, inlier1, idx2, visible, already,
                 inlier2, n_in1, n_matched, n_valid_cur, n_in2)
+
+    def chain_step(self, T_prev, T_last, assoc, lm_remap, packed_last,
+                   packed_cur, lm_block, th=15.0):
+        """Enqueue one pipelined step and read nothing back. Every tensor
+        argument lives on the device (the state may be a previous step's
+        outputs); lm_block is the (pos, normal, mind, maxd, desc, valid)
+        block. Returns (T_last_out, T_cur_out, assoc_out, packed_out), all
+        on the device: hand packed_out to a ChainFetch and decode it with
+        decode_chain_out once the copy landed."""
+        return self._chain(T_prev, T_last, assoc, lm_remap, packed_last,
+                           packed_cur, *lm_block, float(th))
+
+    @property
+    def chain_out_size(self) -> int:
+        """Length of a chain step's packed_out."""
+        return 16 + self._n + 2 * self._p + 6
+
+    def decode_chain_out(self, out: np.ndarray):
+        """A chain step's packed_out, on the host, -> (T_cur f32[4,4], assoc
+        i64[N], visible bool[P], already bool[P], n_in1, n_matched,
+        n_valid_cur, n_in2, (n_tracked_close, n_nontracked_close)). Every
+        array is a copy, so the buffer can be reused."""
+        out = np.asarray(out)
+        n, p = self._n, self._p
+        o = 16
+        T2 = out[:16].reshape(4, 4).astype(np.float32)
+        assoc = out[o:o + n].astype(np.int64); o += n
+        visible = out[o:o + p] > 0.5; o += p
+        already = out[o:o + p] > 0.5; o += p
+        n_in1 = int(out[o]); n_matched = int(out[o + 1])
+        n_valid_cur = int(out[o + 2]); n_in2 = int(out[o + 3])
+        close_counts = (int(out[o + 4]), int(out[o + 5]))
+        return (T2, assoc, visible, already, n_in1, n_matched, n_valid_cur,
+                n_in2, close_counts)
+
+
+class ChainFetch:
+    """Device -> host copies of chain results, one host buffer per slot of
+    the pipeline. issue() queues the copy of a step's packed_out behind the
+    step on the current stream into the next slot's pinned buffer and
+    records a CUDA event after it; wait() blocks on that event alone and
+    returns the buffer as numpy. On the CPU the copy is synchronous and
+    there is no event.
+
+    A slot is written again `n_slots` issues later. The pipelined mode
+    keeps at most depth + 1 steps in flight, so with depth + 1 slots a
+    buffer is rewritten only after its frame was decoded (or discarded;
+    copies on one stream land in issue order)."""
+
+    def __init__(self, size: int, n_slots: int, device):
+        self._cuda = torch.device(device).type == "cuda"
+        self._bufs = [torch.empty(size, dtype=torch.float32,
+                                  pin_memory=self._cuda)
+                      for _ in range(n_slots)]
+        self._next = 0
+
+    def issue(self, packed_out: torch.Tensor):
+        """Queue the copy of packed_out; returns the ticket wait() takes."""
+        buf = self._bufs[self._next]
+        self._next = (self._next + 1) % len(self._bufs)
+        buf.copy_(packed_out, non_blocking=self._cuda)
+        event = None
+        if self._cuda:
+            event = torch.cuda.Event()
+            event.record()
+        return buf, event
+
+    @staticmethod
+    def wait(ticket) -> np.ndarray:
+        """Block until the ticket's copy landed; the host buffer as numpy."""
+        buf, event = ticket
+        if event is not None:
+            event.synchronize()
+        return buf.numpy()

@@ -29,11 +29,21 @@ keyframe's real vocabulary nodes once place recognition is ready.
 The pose-epoch contract (models/loop_closing.py's docstring): a frame
 records the map's pose epoch when it starts, and _store_trajectory refuses
 to store a relative pose after a map-wide pose rewrite landed inside the
-frame (counted in epoch_violations, then raised). With mapping and loop
-closing synchronous they run after the frame, so the count stays 0; the
-check guards the contract.
+frame (counted in epoch_violations, then raised). A frame holds
+arena.correction_lock and arena.lock for its whole span (lock order:
+System._lock > correction_lock > arena.lock), so a loop correction or a
+global-BA apply from the async mapper lands between frames; the lock is
+released only around the fused step's fetch and the keyframe admission's
+waits, and a wait that saw the epoch move re-anchors the frame
+(models/tracking_init.py).
 
-Not in this port yet: the pipelined chain mode.
+The pipelined chain mode (chain_ready ... chain_finish, driven by
+System._track_pipelined): TrackPrograms.chain_step keeps the pose and
+association state on the device, so the System enqueues frame k+1's step
+before frame k's result is read; chain_process then runs track_fused's
+bookkeeping `depth` frames late, behind the reference's accept gates and
+margin gates of its own (CHAIN_*), and a weak result sends the frame
+through the classic path and resyncs the device state.
 
 Two plain functions from the first slice stay beside the Tracker:
 
@@ -72,13 +82,29 @@ from orb_slam_system_tpu_torch.models.tracking_init import (InitAndKeyframes,
 from orb_slam_system_tpu_torch.ops import matching
 from orb_slam_system_tpu_torch.solvers import pnp
 from orb_slam_system_tpu_torch.solvers.initializer import make_ransac_sets
-from orb_slam_system_tpu_torch.utils.interop import to_device
+from orb_slam_system_tpu_torch.utils import lie
+from orb_slam_system_tpu_torch.utils.interop import (local_block_from_numpy,
+                                                     to_device)
 from orb_slam_system_tpu_torch.utils.metrics import StageTimer
 from orb_slam_system_tpu_torch.utils.precision import set_f32_policy
 
 LOCAL_MAP_SLOTS = 4096     # padded local-map point budget for device calls
 MAX_LOCAL_KEYFRAMES = 80   # reference src/Tracking.cc:759-761
 RELOC_TOPUP_RADIUS = 10.0  # relocalization's projection search (:863)
+# The pipelined mode accepts a chain result outright only with at least
+# CHAIN_MIN_FLOOR final inliers and CHAIN_MARGIN_RATIO of the OK frames'
+# inlier average (the reference's own floors stay 30 / 50; this margin
+# pays for the chain's approximations: motion candidates only from the
+# local block, a block and keyframe decisions `depth` frames stale).
+CHAIN_MIN_FLOOR = 40
+CHAIN_MARGIN_RATIO = 0.8
+# Keyframes created since the map's origin before the monocular chain
+# engages (the init pair plus one tracked keyframe); a stereo or RGB-D map
+# is metric from its first keyframe and needs one.
+CHAIN_MIN_KEYFRAMES = 3
+# Classic frames after every keyframe before the chain engages again (0:
+# the JAX package measured no effect once the state is projected on SE(3)).
+CHAIN_SETTLE_FRAMES = 0
 
 
 class LocalMap(NamedTuple):
@@ -154,12 +180,15 @@ def seed_map_from_depth(feats, Tcw, depth_map, cam, scale_factors,
     return out, mp_ids
 
 
-def _block_rows(local_map: LocalMap, mp_ids: np.ndarray) -> np.ndarray:
-    """Row of each map point id in the local block, -1 where absent."""
-    ids = np.asarray(local_map.ids, np.int64)
-    order = np.argsort(ids)
-    li = np.clip(np.searchsorted(ids[order], mp_ids), 0, len(ids) - 1)
-    found = (ids[order][li] == mp_ids) & (mp_ids >= 0)
+def _rows_of(ids, query: np.ndarray) -> np.ndarray:
+    """Row of each query id in ids (a local block's point ids), -1 where
+    absent or where the query is < 0."""
+    ids_arr = np.asarray(ids, np.int64)
+    if not len(ids_arr):
+        return np.full(np.shape(query), -1, np.int64)
+    order = np.argsort(ids_arr, kind="stable")
+    li = np.clip(np.searchsorted(ids_arr[order], query), 0, len(ids_arr) - 1)
+    found = (ids_arr[order][li] == query) & (query >= 0)
     return np.where(found, order[li], -1)
 
 
@@ -181,7 +210,7 @@ def fused_track_step(programs, packed_last, packed_cur, last_Tcw,
         return None
     # The last frame's map points: positions, and their block rows
     # (last2local) so the local-map stage skips what motion matched.
-    rows = _block_rows(local_map, last_mp_ids)
+    rows = _rows_of(local_map.ids, last_mp_ids)
     ok = rows >= 0
     if ok.sum() < 10:
         return None
@@ -280,44 +309,77 @@ class Tracker(InitAndKeyframes):
         # arena.pose_epoch when the current frame started.
         self._frame_epoch = arena.pose_epoch
         self.epoch_violations = 0
+        # Average of the OK frames' final inliers (_note_inliers): the
+        # scene's own level for the chain's margin gate and the async
+        # mapper's fragile-frame rules.
+        self._inl_ema = 0.0
+        # Keyframe admission with the async mapper (tracking_init.py).
+        self.kf_async_queue: Optional[int] = 3
+        self.kf_async_wait_s = 10.0
+        self.kf_drain_release_on_expansion = True
+        self.kf_drain_full_ratio = 0.8
+        self.kf_sync_flush_ratio = 0.6
+        self.kf_wait_stats = {"waits": 0, "wait_s": 0.0, "timeouts": 0,
+                              "full_drains": 0, "fragile_flushes": 0,
+                              "flush_timeouts": 0}
+        # Pipelined mode: final inliers of the recent chain accepts (the
+        # drop detector), outcome counts, the device copy of the local
+        # block, and the opt-in classic re-track of keyframe frames.
+        self._chain_ninl_hist: list[int] = []
+        self.chain_stats = {"accept": 0, "reject": 0, "kf": 0, "kf_direct": 0}
+        self._chain_block_cache = None
+        self.chain_classic_kf = False
 
     def _tensor(self, a) -> torch.Tensor:
         return to_device(a, self.device)
+
+    def _upload(self, a) -> torch.Tensor:
+        """Upload that does not wait for the work queued on the card."""
+        return to_device(a, self.device, non_blocking=True)
 
     # ---- entry point -------------------------------------------------------
 
     def grab_monocular(self, img: np.ndarray, timestamp: float):
         """Reference GrabImageMonocular + Track. Returns Tcw (4x4) or None."""
-        self.current = self.build_frame(img, timestamp)
-        self.track()
-        return None if self.current.Tcw is None else self.current.Tcw.copy()
+        return self.grab_prebuilt(self.build_frame(img, timestamp))
 
     def grab_stereo(self, img_left: np.ndarray, img_right: np.ndarray,
                     timestamp: float):
         """Reference GrabImageStereo + Track: a rectified pair. Returns Tcw
         (4x4) or None."""
-        self.current = self.builder.build_stereo(img_left, img_right, timestamp)
-        self.track()
-        return None if self.current.Tcw is None else self.current.Tcw.copy()
+        return self.grab_prebuilt(
+            self.builder.build_stereo(img_left, img_right, timestamp))
 
     def grab_rgbd(self, img: np.ndarray, depth: np.ndarray, timestamp: float):
         """Reference GrabImageRGBD + Track: an image and its raw depth map
         (scaled by 1 / DepthMapFactor). Returns Tcw (4x4) or None."""
-        self.current = self.builder.build_rgbd(img, depth, timestamp)
-        self.track()
-        return None if self.current.Tcw is None else self.current.Tcw.copy()
+        return self.grab_prebuilt(self.builder.build_rgbd(img, depth, timestamp))
 
     def build_frame(self, img: np.ndarray, timestamp: float) -> Frame:
         """Monocular frame construction with the builder the state calls for
-        (the 2x-features one until the map is initialized)."""
+        (the 2x-features one until the map is initialized). A streaming
+        caller builds frame i+1 here before it tracks frame i."""
         builder = (self.init_builder
                    if self.state in (TrackingState.NO_IMAGES_YET,
                                      TrackingState.NOT_INITIALIZED)
                    else self.builder)
         return builder.build(img, timestamp)
 
+    def grab_prebuilt(self, frame: Frame):
+        """Track a frame made by build_frame (or a builder of this tracker's
+        sensor). Returns Tcw (4x4) or None."""
+        self.current = frame
+        self.track()
+        return None if self.current.Tcw is None else self.current.Tcw.copy()
+
     def track(self):
-        self._frame_epoch = self.arena.pose_epoch
+        """One frame under the map's locks (module docstring); the frame's
+        pose epoch is taken inside them."""
+        with self.arena.correction_lock, self.arena.lock:
+            self._frame_epoch = self.arena.pose_epoch
+            self._track_locked()
+
+    def _track_locked(self):
         if self.state == TrackingState.NO_IMAGES_YET:
             self.state = TrackingState.NOT_INITIALIZED
         if self.state == TrackingState.NOT_INITIALIZED:
@@ -358,6 +420,7 @@ class Tracker(InitAndKeyframes):
             ok = self.track_local_map()
         self.state = TrackingState.OK if ok else TrackingState.LOST
         if ok:
+            self._note_inliers(self.n_inliers)
             # Motion model (reference :216-221).
             if self.last_frame is not None and self.last_frame.Tcw is not None:
                 self.velocity = self.current.Tcw @ np.linalg.inv(
@@ -775,15 +838,9 @@ class Tracker(InitAndKeyframes):
             Tcw_pred = (self.velocity @ last.Tcw).astype(np.float32)
             proj, front = self._project(pos, Tcw_pred)
             ok = ok & front
-            # last slot -> local block row.
-            ids_arr = np.asarray(ids, np.int64)
-            order = np.argsort(ids_arr)
-            sorted_ids = ids_arr[order]
-            li = np.clip(np.searchsorted(sorted_ids, last.mp_ids), 0,
-                         len(sorted_ids) - 1)
-            found = (sorted_ids[li] == last.mp_ids) & (last.mp_ids >= 0)
-            last2local = np.where(found, order[li], -1).astype(np.int32)
-        with t.stage("fused_device"):
+            last2local = _rows_of(ids, last.mp_ids).astype(np.int32)
+        # The fetch waits for the card: the mapper's host work may run.
+        with t.stage("fused_device"), self.arena.unlocked():
             (T2, best_j, matched, inlier1, idx2, visible, already, inlier2,
              n_in1, n_matched, _, n_in2) = self.programs.fused_step(
                 proj, ok, pos, last.packed, cur.packed, Tcw_pred,
@@ -814,6 +871,166 @@ class Tracker(InitAndKeyframes):
         with t.stage("update_local_kfs"):
             self.update_local_keyframes()
         return True
+
+    # ---- the pipelined chain mode -------------------------------------------
+
+    def _note_inliers(self, n: int):
+        """Fold an OK frame's final inliers into _inl_ema."""
+        self._inl_ema = (float(n) if self._inl_ema == 0.0
+                         else 0.7 * self._inl_ema + 0.3 * float(n))
+
+    def chain_ready(self) -> bool:
+        """Whether the next frame may go through the chain: OK with a
+        motion model and a local map, not in localization mode, on a map
+        that created CHAIN_MIN_KEYFRAMES keyframes since its origin (1 for
+        a depth sensor), at least CHAIN_SETTLE_FRAMES after the last
+        keyframe."""
+        a = self.arena
+        created = a.next_kf_id - a.kf_origin_id if a.kf_origin_id >= 0 else 0
+        last = self.last_frame
+        settled = (last is not None
+                   and last.id - self.last_kf_frame_id >= CHAIN_SETTLE_FRAMES)
+        min_created = (CHAIN_MIN_KEYFRAMES
+                       if self.cfg.sensor == Sensor.MONOCULAR else 1)
+        return (self.state == TrackingState.OK and not self.only_tracking
+                and self.velocity is not None and bool(self.local_kf_ids)
+                and last is not None and last.Tcw is not None
+                and created >= min_created and settled)
+
+    def chain_block(self):
+        """(ids, device block) of the local map for the chain step:
+        _gather_local_points's block, uploaded once per (local keyframe
+        set, arena.version) without waiting for the card."""
+        key = (tuple(self.local_kf_ids), self.arena.version)
+        cache = self._chain_block_cache
+        if cache is None or cache[0] != key:
+            ids, *cols = self._gather_local_points()
+            block = local_block_from_numpy(*cols, self.device, non_blocking=True)
+            cache = self._chain_block_cache = (key, ids, block)
+        return cache[1], cache[2]
+
+    def chain_bootstrap(self):
+        """The device state from the host state, to enter the chain or to
+        resync it: re-anchor the last frame first (a correction between
+        frames moved the map; the velocity is camera-relative and stays),
+        then project both poses onto SE(3) exactly, since a chain-accepted
+        host pose carries a step of f32 rounding. Returns ((T_prev, T_last,
+        assoc) on the device, block ids)."""
+        self._reanchor_last_frame()
+        ids, _ = self.chain_block()
+        last = self.last_frame
+        T_last = lie.se3_project_np(last.Tcw).astype(np.float32)
+        # velocity = T_last T_prev^-1  =>  T_prev = velocity^-1 T_last
+        T_prev = lie.se3_project_np(
+            np.linalg.inv(self.velocity) @ T_last).astype(np.float32)
+        assoc = _rows_of(ids, last.mp_ids)
+        return (self._upload(T_prev), self._upload(T_last),
+                self._upload(assoc)), ids
+
+    def chain_enqueue(self, frame: Frame, state, prev_packed, prev_ids):
+        """Enqueue frame's chain step on state = (T_prev, T_last, assoc)
+        and read nothing back: the previous block's rows are remapped to
+        the current block's by id. Returns (ids, new state, packed_out)."""
+        ids, block = self.chain_block()
+        remap = np.full(LOCAL_MAP_SLOTS, -1, np.int64)
+        prev = np.asarray(prev_ids, np.int64)
+        remap[:len(prev)] = _rows_of(ids, prev)
+        T_prev, T_last, assoc = state
+        T_last_o, T_cur_o, assoc_o, packed_out = self.programs.chain_step(
+            T_prev, T_last, assoc, self._upload(remap), prev_packed,
+            frame.packed, block)
+        return ids, (T_last_o, T_cur_o, assoc_o), packed_out
+
+    def _chain_reject(self):
+        self.chain_stats["reject"] += 1
+        return None
+
+    def chain_process(self, frame: Frame, ids, host_out: np.ndarray):
+        """track_fused's bookkeeping for a chain result read back to the
+        host (host_out), `depth` frames late. Returns True, "kf" (opt-in
+        chain_classic_kf: re-track this keyframe frame classically), or
+        None for a weak result: the caller then tracks the frame through
+        the classic path and resyncs the device state."""
+        t = self.stage_ms
+        self._frame_epoch = self.arena.pose_epoch
+        with t.stage("chain_decode"):
+            (T2, assoc, visible, already, n_in1, n_matched, _, n_in2,
+             close_counts) = self.programs.decode_chain_out(host_out)
+        # The reference's gates (fused step, :570-575).
+        if n_matched < 20 or n_in1 < 10:
+            return self._chain_reject()
+        if n_in2 < 30 or (self.frames_since_reloc < self.max_frames
+                          and n_in2 < 50):
+            return self._chain_reject()
+        # Margin gates: the scene's own level (an absolute floor disabled
+        # the chain on scenes that track below it), and a sharp drop
+        # against the recent accepts.
+        hist = self._chain_ninl_hist
+        if n_in2 < max(CHAIN_MIN_FLOOR, CHAIN_MARGIN_RATIO * self._inl_ema):
+            hist.clear()
+            return self._chain_reject()
+        if len(hist) >= 3 and n_in2 < 0.6 * (sum(hist) / len(hist)):
+            hist.clear()
+            return self._chain_reject()
+        hist.append(n_in2)
+        if len(hist) > 5:
+            hist.pop(0)
+        cur = self.current = frame
+        self.n_inliers = n_in2
+        # Set only once the gates passed: a rejected result's counts come
+        # from a collapsed association.
+        frame.chain_close_counts = close_counts
+        if (self.chain_classic_kf and not self.only_tracking
+                and self.need_new_keyframe()):
+            hist.clear()
+            self.chain_stats["kf"] += 1
+            frame.chain_close_counts = None
+            return "kf"
+        with t.stage("chain_bookkeeping"):
+            ids_pad = np.full(LOCAL_MAP_SLOTS, -1, np.int64)
+            ids_pad[:len(ids)] = ids
+            cur.mp_ids[:] = -1
+            cur.vo_points = {}
+            sel = assoc >= 0
+            cur.mp_ids[sel] = ids_pad[assoc[sel]]
+            cur.Tcw = T2
+            cur.outlier = np.zeros(cur.n_slots, bool)   # pruned on the card
+            mps = self.arena.mps
+            for k in np.nonzero(visible | already)[0]:
+                if k < len(ids):
+                    mp = mps.get(ids[k])
+                    if mp is not None:
+                        mp.n_visible += 1
+            self._count_found(cur)
+            # Points the mapper replaced or culled since the enqueue.
+            self._replace_updated_points(cur)
+        with t.stage("update_local_kfs"):
+            self.update_local_keyframes()
+        self.chain_stats["accept"] += 1
+        return True
+
+    def chain_finish(self, frame: Frame, ok: bool):
+        """_track_locked's epilogue for a frame chain_process accepted."""
+        self.current = frame
+        self.state = TrackingState.OK if ok else TrackingState.LOST
+        if ok:
+            self._note_inliers(self.n_inliers)
+            last = self.last_frame
+            self.velocity = (frame.Tcw @ np.linalg.inv(last.Tcw)
+                             if last is not None and last.Tcw is not None
+                             else None)
+            frame.mp_ids[frame.outlier] = -1
+            with self.stage_ms.stage("kf_decision"):
+                need_kf = self.need_new_keyframe()
+            if need_kf:
+                with self.stage_ms.stage("kf_create"):
+                    self.create_new_keyframe()
+                self.chain_stats["kf_direct"] += 1
+            self.frames_since_reloc += 1
+        elif self.arena.n_keyframes() <= 5:
+            self.reset()
+        self._store_trajectory()
+        self.last_frame = frame
 
     # ---- relocalization (reference :796-884) --------------------------------
 
@@ -973,10 +1190,18 @@ class Tracker(InitAndKeyframes):
     # ---- reset and trajectory (reference :887-927, :239) -------------------
 
     def reset(self):
-        self.local_mapper.reset()
-        if self.place_rec is not None:
-            self.place_rec.reset()      # reference Tracking::Reset clears the DB
-        self._reset_map()
+        # The async worker is drained with the frame's locks released (its
+        # stages wait for arena.lock, a loop correction in it for
+        # correction_lock); both are no-ops for a caller that holds neither.
+        with self.arena.unlocked(), self.arena.correction_unlocked():
+            self.local_mapper.reset()
+        with self.arena.lock:
+            if self.place_rec is not None:
+                self.place_rec.reset()  # reference Tracking::Reset clears the DB
+            self._reset_map()
+        self._chain_ninl_hist.clear()
+        self._inl_ema = 0.0
+        self._frame_epoch = self.arena.pose_epoch
         self.velocity = None
         self.mb_vo = False
         self.ref_kf_id = -1

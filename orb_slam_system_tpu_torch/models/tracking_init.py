@@ -2,17 +2,32 @@
 
 Port of the JAX package's models/tracking.py:391-553 (reference
 MonocularInitialization, CreateInitialMapMonocular and StereoInitialization)
-and :1362-1617 (NeedNewKeyFrame, CreateNewKeyFrame), with the synchronous
-mapper: mapping drains its queue after every frame, so it is idle at each
-keyframe decision and the async admission and backpressure machinery has
-nothing to do. A monocular map starts from two views; a stereo or RGB-D
-map from one frame's depths, at metric scale, and every later keyframe of
-those sensors seeds points from its close depths. A mixin of
-models.tracking.Tracker, which owns the state it reads (arena, frames,
-builders, programs, local mapper).
+and :1362-1617 (NeedNewKeyFrame, CreateNewKeyFrame). A monocular map
+starts from two views; a stereo or RGB-D map from one frame's depths, at
+metric scale, and every later keyframe of those sensors seeds points from
+its close depths. A mixin of models.tracking.Tracker, which owns the state
+it reads (arena, frames, builders, programs, local mapper, the knobs
+below).
+
+With the synchronous mapper the queue is drained after every frame, so the
+mapper is idle at each keyframe decision. With the async worker
+(System(async_mapping=True)) a keyframe the frame asks for is admitted to
+the worker's queue while fewer than `kf_async_queue` wait (upstream's
+stereo / RGB-D busy-mapper rule, extended to monocular); on a full queue
+the decision waits for the worker to drain it (backpressure, at most
+`kf_async_wait_s`, arena.lock and correction_lock released). The wait ends
+once the backlog's triangulations landed (`kf_drain_release_on_expansion`),
+or, for a frame whose inliers fell below `kf_drain_full_ratio` of the OK
+frames' inlier average, once the worker is idle. A keyframe made while the
+inliers are below `kf_sync_flush_ratio` of that average flushes the worker
+before tracking goes on. Where a loop correction landed during such a wait,
+the frame's pose is re-anchored through its pose relative to the reference
+keyframe from before the wait.
 """
 
 from __future__ import annotations
+
+import time
 
 import numpy as np
 import torch
@@ -210,9 +225,10 @@ class InitAndKeyframes:
                          if ref is not None else 0)
         frames_since_kf = self.current.id - self.last_kf_frame_id
         # c1a: max_frames since the last keyframe; c1b: min_frames since it
-        # and the mapper idle, which the synchronous mapper always is here.
+        # and the mapper idle (the synchronous mapper always is).
+        mapper_idle = self.local_mapper.accepting()
         c1a = frames_since_kf >= self.max_frames
-        c1b = frames_since_kf >= self.min_frames and self.local_mapper.accepting()
+        c1b = frames_since_kf >= self.min_frames and mapper_idle
         # c1c, stereo and RGB-D: too few close points tracked while enough
         # close points are not (reference :590-600).
         mono = self.cfg.sensor == Sensor.MONOCULAR
@@ -225,12 +241,75 @@ class InitAndKeyframes:
         th_ratio = 0.9 if mono else 0.75
         c2 = ((self.n_inliers < n_ref_matches * th_ratio or c1c)
               and self.n_inliers > 15)
-        return (c1a or c1b or c1c) and c2
+        # Bounded-queue admission: the demand is measured without the
+        # idleness precondition (a busy mapper must not suppress it).
+        c1b_demand = (frames_since_kf >= self.min_frames
+                      if self.kf_async_queue else c1b)
+        if not ((c1a or c1b_demand or c1c) and c2):
+            return False
+        if mapper_idle:
+            return True
+        self.local_mapper.interrupt_ba()
+        if not self.kf_async_queue:
+            return False
+        if len(self.local_mapper.queue) < self.kf_async_queue:
+            return True
+        # Queue full: drain the backlog rather than drop the demand
+        # (dropping healthy frames' demands lost the JAX package's
+        # 1250-frame endurance run at every new stretch of the scene).
+        return self.kf_async_wait_s > 0 and self._wait_for_mapper_space()
+
+    def _wait_for_mapper_space(self) -> bool:
+        """Backpressure: wait, at most kf_async_wait_s, with arena.lock and
+        correction_lock released, until the worker drained its whole queue
+        (not one slot: a queue kept full leaves mapping that many keyframes
+        stale) and its expansion (or, for a fragile frame, all its work).
+        A loop correction during the wait re-anchors the frame's pose.
+        Returns whether a slot is free; never raises."""
+        mapper = self.local_mapper
+        t0 = time.monotonic()
+        deadline = t0 + self.kf_async_wait_s
+        self.kf_wait_stats["waits"] += 1
+        cur = self.current
+        epoch0 = self.arena.pose_epoch
+        ref0 = self.arena.kfs.get(self.ref_kf_id)
+        Tcr_pre = None
+        if cur is not None and cur.Tcw is not None and ref0 is not None:
+            Tcr_pre = cur.Tcw @ np.linalg.inv(ref0.Tcw)
+        fragile = self.n_inliers < self.kf_drain_full_ratio * max(
+            self._inl_ema, 1.0)
+        release_at_expansion = self.kf_drain_release_on_expansion and not fragile
+        if fragile:
+            self.kf_wait_stats["full_drains"] += 1
+        with self.arena.unlocked(), self.arena.correction_unlocked():
+            while ((mapper.queue or (mapper._expanding if release_at_expansion
+                                     else mapper._busy))
+                   and time.monotonic() < deadline):
+                time.sleep(0.002)
+        if self.arena.pose_epoch != epoch0:
+            if Tcr_pre is not None:
+                ref = self.arena.kfs.get(self.ref_kf_id)
+                if ref is not None:
+                    cur.Tcw = (Tcr_pre @ ref.Tcw).astype(np.float32)
+                    self._frame_epoch = self.arena.pose_epoch
+            elif cur is None or cur.Tcw is None:
+                self._frame_epoch = self.arena.pose_epoch
+            # Else the pose could not be re-anchored: _frame_epoch stays
+            # stale and _store_trajectory refuses the frame.
+        self.kf_wait_stats["wait_s"] += time.monotonic() - t0
+        ok = len(mapper.queue) < self.kf_async_queue
+        if not ok:
+            self.kf_wait_stats["timeouts"] += 1
+        return ok
 
     def _close_point_counts(self):
         """(tracked, not tracked) features with a depth below th_depth
-        (reference :590-600)."""
+        (reference :590-600). A frame the chain step tracked carries the
+        counts it made on the device, so its depth column is never
+        fetched."""
         cur = self.current
+        if cur.chain_close_counts is not None:
+            return cur.chain_close_counts
         close = (cur.depth > 0) & (cur.depth < self.cfg.th_depth)
         tracked = (cur.mp_ids >= 0) & ~cur.outlier
         return int((close & tracked).sum()), int((close & ~tracked).sum())
@@ -246,6 +325,26 @@ class InitAndKeyframes:
         if self.cfg.sensor != Sensor.MONOCULAR:
             self._seed_depth_points(kf)
         self.local_mapper.insert_keyframe(kf.id)
+        # A keyframe made while tracking is fragile exists to replenish the
+        # local map: with the async worker, its triangulations must land
+        # before the next frames (the JAX package lost degraded segments
+        # otherwise). Flush the worker for this keyframe only.
+        if (self.kf_sync_flush_ratio > 0 and self.local_mapper.is_async
+                and self.n_inliers < self.kf_sync_flush_ratio * self._inl_ema):
+            self.kf_wait_stats["fragile_flushes"] += 1
+            epoch0 = self.arena.pose_epoch
+            with self.arena.unlocked(), self.arena.correction_unlocked():
+                try:
+                    self.local_mapper.flush(timeout=60.0)
+                except RuntimeError:
+                    # The keyframe is queued; a wedged worker slows
+                    # tracking down rather than ending it.
+                    self.kf_wait_stats["flush_timeouts"] += 1
+            if self.arena.pose_epoch != epoch0 and kf.id in self.arena.kfs:
+                # A correction landed during the flush and moved the new
+                # keyframe with the map: the frame is the same camera.
+                cur.Tcw = self.arena.kfs[kf.id].Tcw.copy()
+                self._frame_epoch = self.arena.pose_epoch
 
     def _seed_depth_points(self, kf):
         """Reference CreateNewKeyFrame (:619-659) for stereo and RGB-D: sweep

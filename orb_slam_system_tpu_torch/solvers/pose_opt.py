@@ -55,7 +55,9 @@ def _residuals(xi, T0, Xw, obs, obs_ur, bf, fx, fy, cx, cy, with_jac):
     ], dim=1)
     eye = torch.eye(3, dtype=Xc.dtype, device=Xc.device).expand_as(neg_hat)
     J = -(J_proj @ torch.cat([eye, neg_hat], dim=2))   # [N,3,6]
-    row_mask = torch.tensor([1.0, 1.0, 0.0], device=Xc.device)[None, :, None]
+    # (1, 1, 0) made on the device: a tensor built from a host list would
+    # be a blocking host->device copy inside every LM iteration.
+    row_mask = (torch.arange(3, device=Xc.device) < 2).to(Xc.dtype)[None, :, None]
     J = J * torch.where(is_stereo[:, None, None], torch.ones_like(row_mask),
                         row_mask)
     return e, J, z, is_stereo

@@ -28,10 +28,11 @@ def packed_frame_from_numpy(packed, device) -> torch.Tensor:
     return _bits(packed, np.float32).to(device)
 
 
-def local_block_from_numpy(pos, normal, mind, maxd, desc, valid, device):
+def local_block_from_numpy(pos, normal, mind, maxd, desc, valid, device,
+                           non_blocking: bool = False):
     """Local-map block (numpy; desc u32[P,8]) -> tensors on `device`, desc
-    as int32 bit patterns."""
-    return tuple(to_device(a, device)
+    as int32 bit patterns (non_blocking: see to_device)."""
+    return tuple(to_device(a, device, non_blocking)
                  for a in (pos, normal, mind, maxd, desc, valid))
 
 
@@ -46,18 +47,27 @@ def feature_set_from_numpy(fs, device) -> FeatureSet:
         valid=f(fs.valid, np.bool_))
 
 
-def to_device(a, device) -> torch.Tensor:
+def to_device(a, device, non_blocking: bool = False) -> torch.Tensor:
     """numpy -> tensor on `device`: uint32 descriptor words become their
     int32 bits, bools stay bool, other integers become int64 and floats
-    float32. A read-only array (a JAX array's numpy view) is copied."""
+    float32. A read-only array (a JAX array's numpy view) is copied.
+
+    non_blocking: to a CUDA device the host tensor is staged in pinned
+    memory and copied asynchronously on the current stream, so the upload
+    does not wait for the work queued before it (a plain upload from
+    pageable memory synchronizes the stream)."""
     a = np.ascontiguousarray(a)
     if not a.flags.writeable:
         a = a.copy()
     if a.dtype == np.uint32:
-        return torch.from_numpy(a.view(np.int32)).to(device)
-    dtype = (torch.bool if a.dtype == np.bool_ else torch.int64
-             if np.issubdtype(a.dtype, np.integer) else torch.float32)
-    return torch.from_numpy(a).to(device=device, dtype=dtype)
+        t = torch.from_numpy(a.view(np.int32))
+    else:
+        dtype = (torch.bool if a.dtype == np.bool_ else torch.int64
+                 if np.issubdtype(a.dtype, np.integer) else torch.float32)
+        t = torch.from_numpy(a).to(dtype)
+    if non_blocking and torch.device(device).type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
 
 
 def to_numpy(t: torch.Tensor, uint32: bool = False) -> np.ndarray:

@@ -68,12 +68,12 @@ def se3_exp(xi: torch.Tensor) -> torch.Tensor:
     WW = W @ W
     eye = torch.eye(3, dtype=xi.dtype, device=xi.device)
     R = eye + A * W + B * WW
-    t = ((eye + B * W + C * WW) @ rho[..., None])[..., 0]
-    T = torch.zeros(xi.shape[:-1] + (4, 4), dtype=xi.dtype, device=xi.device)
-    T[..., :3, :3] = R
-    T[..., :3, 3] = t
-    T[..., 3, 3] = 1.0
-    return T
+    t = ((eye + B * W + C * WW) @ rho[..., None])
+    # The bottom row (0, 0, 0, 1) made on the device: writing a Python
+    # number into a CUDA tensor is a blocking upload.
+    bottom = torch.eye(4, dtype=xi.dtype, device=xi.device)[3:]
+    return torch.cat([torch.cat([R, t], -1),
+                      bottom.expand(xi.shape[:-1] + (1, 4))], -2)
 
 
 def se3_inv(T: torch.Tensor) -> torch.Tensor:
@@ -100,6 +100,21 @@ def se3_project(T: torch.Tensor, iters: int = 5) -> torch.Tensor:
     """Re-orthonormalize the rotation block of a 4x4 pose, keeping t."""
     out = torch.eye(4, dtype=T.dtype, device=T.device)
     out[:3, :3] = so3_project(T[:3, :3], iters)
+    out[:3, 3] = T[:3, 3]
+    return out
+
+
+def se3_project_np(T) -> np.ndarray:
+    """The exact SE(3) projection of a host pose (numpy, float64): the
+    rotation block's polar factor by SVD, with the sign fixed so that
+    det = +1; t kept. The pipelined tracker projects the host poses it
+    starts the device chain from (Tracker.chain_bootstrap)."""
+    U, _, Vt = np.linalg.svd(np.asarray(T[:3, :3], np.float64))
+    R = U @ Vt
+    if np.linalg.det(R) < 0:
+        R = U @ np.diag([1.0, 1.0, -1.0]) @ Vt
+    out = np.eye(4, dtype=np.float64)
+    out[:3, :3] = R
     out[:3, 3] = T[:3, 3]
     return out
 

@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card,
-and the relocalization, loop-closing and stereo paths' torch code on the
-card against the CPU, with one loop closed and one stereo run tracked on
-the card.
+and the relocalization, loop-closing, stereo and chain-step torch code on
+the card against the CPU (the chain step under CUDA's sync debug mode),
+with one loop closed, one stereo run and one async + pipelined monocular
+run tracked on the card.
 
 Marked `cuda`: they skip without a GPU (a CUDA kernel has no CPU mode).
 Run them on a machine with an NVIDIA GPU and nvcc (--noconftest: the
@@ -570,3 +571,120 @@ def test_stereo_system_on_the_card_320x240(dev):
     ur = kf0.feats.u_right
     disp = kf0.feats.xy_und[ur >= 0, 0] - ur[ur >= 0]
     assert len(disp) > 150 and (disp > 0).all() and disp.max() < slam.cfg.camera.fx
+
+
+def _chain_case(rgbd: bool):
+    """A chain step's inputs, as numpy: two RGB-D (18-column) or monocular
+    frames of the 320x240 orbit built on the CPU, a 512-point block seeded
+    from frame 0's depths, an association into a permuted previous block
+    with -1s, a remap with dropped rows, and a pose state a little off
+    SO(3). Returns (cfg, builder, inputs)."""
+    from orb_slam_system_tpu_torch.config import (CameraConfig, ORBConfig,
+                                                  Sensor, SlamConfig)
+    from orb_slam_system_tpu_torch.dataio.synthetic import (
+        PlanarSceneRenderer, make_texture, orbit_trajectory)
+    from orb_slam_system_tpu_torch.models.frame import FrameBuilder
+    from orb_slam_system_tpu_torch.models.tracking import seed_map_from_depth
+    cam = CameraConfig(fx=260.0, fy=260.0, cx=160.0, cy=120.0, width=320,
+                       height=240, bf=20.8 if rgbd else 0.0)
+    cfg = SlamConfig(camera=cam, orb=ORBConfig(n_features=400),
+                     sensor=Sensor.RGBD if rgbd else Sensor.MONOCULAR,
+                     th_depth=2.05, depth_map_factor=1.0)
+    r = PlanarSceneRenderer(cam.K, 320, 240, texture=make_texture(2048, 8, 7),
+                            tex_scale=220.0)
+    poses = orbit_trajectory(30, radius=0.35, depth=-2.0, tilt=0.3)[:2]
+    fb = FrameBuilder(cfg, "cpu")
+    imgs = [np.clip(r.render(T), 0, 255).astype(np.uint8) for T in poses]
+    depths = [r.render_depth(T).astype(np.float32) for T in poses]
+    packed = [(fb.build_rgbd(i, d, 0.0) if rgbd else fb.build(i, 0.0)).packed
+              for i, d in zip(imgs, depths)]
+    feats0 = FrameBuilder._unpack_feats(packed[0].numpy())
+    lm, mp_ids = seed_map_from_depth(feats0, poses[0].astype(np.float32),
+                                     depths[0], cam, fb.scale_factors, 512)
+    rng = np.random.default_rng(3)
+    k = len(lm.ids)
+    perm = rng.permutation(k)
+    remap = np.full(512, -1, np.int64)
+    remap[:k] = perm
+    remap[rng.random(512) < 0.05] = -1
+    assoc = np.where(mp_ids >= 0, np.argsort(perm)[np.maximum(mp_ids, 0)], -1)
+    assoc[rng.random(len(assoc)) < 0.1] = -1
+    T0, T1 = (p.astype(np.float64) for p in poses)
+    T_last = T0.astype(np.float32)
+    T_last[:3, :3] *= np.float32(1.002)
+    T_prev = (np.linalg.inv(T1 @ np.linalg.inv(T0)) @ T0).astype(np.float32)
+    block = (lm.pos, lm.normal, lm.mind, lm.maxd, lm.desc, lm.valid)
+    return cfg, fb, (T_prev, T_last, assoc, remap, packed, block)
+
+
+@pytest.mark.parametrize("rgbd", [False, True])
+def test_chain_step_on_the_card_matches_cpu(dev, rgbd):
+    """TrackPrograms.chain_step on the card against the CPU on the same
+    inputs, with CUDA's sync debug mode set to "error" around the card's
+    step (no read back to the host, no blocking upload): pose within 1e-3,
+    counts within 3% (the pose LM reclassifies edges whose chi2 sits near
+    its threshold where float32 sums run in another order), association,
+    visible and already-local rows equal on >= 99%."""
+    from orb_slam_system_tpu_torch.models.track_device import TrackPrograms
+    from orb_slam_system_tpu_torch.utils.interop import (
+        local_block_from_numpy, to_device)
+    cfg, fb, (T_prev, T_last, assoc, remap, packed, block) = _chain_case(rgbd)
+    outs = []
+    for d in ("cpu", dev):
+        prog = TrackPrograms(cfg, fb.extractor.n_slots, 512, fb.bounds, d)
+        args = [to_device(a, d, non_blocking=True)
+                for a in (T_prev, T_last, assoc, remap)]
+        args += [p.to(d) for p in packed]
+        args.append(local_block_from_numpy(*block, d, non_blocking=True))
+        if d != "cpu":
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = prog.chain_step(*args)[3]
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        outs.append(prog.decode_chain_out(out.cpu().numpy()))
+    (cT, ca, cv, cal, *cc), (gT, ga, gv, gal, *gc) = outs
+    assert cc[1] >= 100 and cc[3] >= 100, cc
+    np.testing.assert_allclose(gT, cT, rtol=0, atol=1e-3)
+    for c, g in zip(cc[:4], gc[:4]):
+        assert abs(c - g) <= 0.03 * max(c, 1), (cc, gc)
+    assert (ga == ca).mean() >= 0.99
+    assert (gv == cv).mean() >= 0.99 and (gal == cal).mean() >= 0.99
+    if rgbd:
+        assert all(abs(c - g) <= 0.03 * max(c, 1) for c, g in zip(cc[4], gc[4]))
+
+
+def test_chain_fetch_matches_blocking_copy(dev):
+    """ChainFetch's pinned copy behind queued work, waited on through its
+    event, returns what a blocking .cpu() of the same tensor returns."""
+    from orb_slam_system_tpu_torch.models.track_device import ChainFetch
+    fetch = ChainFetch(1 << 20, 3, dev)
+    x = torch.randn(1 << 20, device=dev)
+    for i in range(5):
+        torch.cuda._sleep(2_000_000)          # work queued before the copy
+        y = x * (i + 1) + 0.5
+        ticket = fetch.issue(y)
+        assert ticket[0].is_pinned()
+        got = ChainFetch.wait(ticket).copy()
+        assert np.array_equal(got, y.cpu().numpy())
+
+
+def test_async_pipelined_system_on_the_card_320x240(dev):
+    """drivers/mono_synthetic with the async mapper and
+    track_monocular_pipelined on the card, 30 frames of the 320x240 orbit:
+    one record per frame in order, >= 28 OK, >= 10 chain accepts, ATE
+    < 3 cm, a clean shutdown."""
+    from orb_slam_system_tpu_torch.config import TrackingState
+    from orb_slam_system_tpu_torch.drivers import mono_synthetic
+    slam, rmse = mono_synthetic.run(30, None, 400, device="cuda",
+                                    verbose=False, pipelined=True,
+                                    async_mapping=True)
+    recs = slam.telemetry.records
+    assert [r["t"] for r in recs] == [i / 30.0 for i in range(30)]
+    assert sum(r["state"] == int(TrackingState.OK) for r in recs) >= 28
+    assert slam.tracker.chain_stats["accept"] >= 10
+    assert rmse < 0.03
+    assert slam.local_mapper._thread is None
+    assert slam.local_mapper.worker_errors == 0
+    assert slam.tracker.epoch_violations == 0

@@ -21,6 +21,13 @@ for new in ("vocab.vocabulary", "mapping.keyframe_db",
     assert pkg.__name__ + "." + new in names, new
 for n in names:
     importlib.import_module(n)
+import inspect
+from orb_slam_system_tpu_torch.models.system import System
+for m in ("track_monocular_stream", "track_monocular_pipelined",
+          "track_stereo_pipelined", "track_rgbd_pipelined",
+          "track_monocular_prebuilt"):
+    assert callable(getattr(System, m)), m
+assert "async_mapping" in inspect.signature(System).parameters
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.")
              or m == "orb_slam_system_tpu" or m.startswith("orb_slam_system_tpu."))
@@ -69,7 +76,7 @@ def test_port_never_imports_jax():
     """Every module of the port (walked, so new ones are covered; the
     place-recognition, relocalization and loop-closing modules named),
     chip_smoke.py and kernel_times.py import without jax or the JAX
-    package."""
+    package, and the System has its realtime entry points."""
     assert int(_run(_IMPORT_ALL).split()[-1]) >= 48
 
 
