@@ -112,7 +112,39 @@ Phases, each of which fails the run (exit code != 0) when it fails:
      c. 30 of phase 8's KITTI-width pairs through track_stereo_pipelined:
         initialized at frame 0, >= 90% OK, ATE < 12 cm, >= 1 chain accept
         (one keyframe arms a stereo chain).
-The second-to-last line is a JSON object with each kernel's launches (on the
+ 11. sequences and maps from disk, through the dataset entry points:
+     a. build the native decoder (native/dataloader.cpp, g++) and print
+        g++'s version;
+     b. write four synthetic sequences in their datasets' layouts under a
+        temporary folder, 8-bit frames and 16-bit depth as PNGs from
+        models/viewer.encode_png: TUM mono (the first 30 frames of 10a's u8
+        orbit, rgb.txt, TUM groundtruth.txt), TUM RGB-D (phase 9's camera,
+        20 frames, depth.txt, associations.txt, DepthMapFactor 5000), KITTI
+        stereo (the first 20 of phase 8's 1241x376 pairs, image_0 /
+        image_1, times.txt, KITTI-format poses) and EuRoC mono (20 frames
+        of a 752x480 camera with EuRoC cam0's intrinsics under
+        mav0/cam0/data/<ns>.png, a timestamp file, its settings file);
+     c. run each through drivers/run_dataset.py's main (in this process,
+        unpaced, an ATE gate): TUM mono with a k=10, L=2 ORBvoc-format
+        vocabulary made from a seed, the others self-trained. Bars: TUM
+        mono OK at the end, >= 3 keyframes, > 150 points, Sim3 ATE < 3 cm;
+        RGB-D >= n - 2 frames tracked, SE3 ATE < 5 cm; KITTI stereo >= 90%
+        tracked, SE3 ATE < 12 cm (CameraTrajectory.txt, KITTI format);
+        EuRoC all 20 frames read from mav0/cam0, >= 90% tracked after
+        initialization, Sim3 ATE < 3 cm; kernel A and B's describe mode once
+        per frame build in every run;
+     d. save the TUM mono run's map (file bytes, save and load ms), load it
+        into a fresh System in localization mode: frame 15's view must
+        relocalize with its camera centre within 1 cm of the pose the run
+        tracked for it, and 5 more frames stay OK with no keyframe added;
+        then load the same file into the run's own System: its first
+        relocalized pose must equal the fresh System's within 1e-4;
+     e. print the decode ms per frame (one-shot, and through the prefetch
+        ring as the drivers wait on it) beside the track ms per frame.
+The synthetic frames are rendered on the host, and later phases render poses
+of earlier ones again: memoize_renders serves a repeat from a cache (the
+same image), and the script prints its clock after each phase. The
+second-to-last line is a JSON object with each kernel's launches (on the
 path that runs it, and in every phase), error, times and bound; the last
 line is {"ok": true, "device": {...}}. Without CUDA, or without the package
 beside it, the script exits non-zero and prints no result.
@@ -120,6 +152,7 @@ beside it, the script exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import hashlib
 import json
 import os
 import statistics
@@ -159,6 +192,15 @@ LOCALIZE_FRAMES = 8         # ... then in localization mode
 MAX_RGBD_ATE_M = 0.05       # tests/test_e2e_rgbd.py's bars
 MAX_SPAN_ERR_RGBD = 0.10
 TEX_SCALE = 440.0           # phase 5's texture scale
+SEQ_TUM_FRAMES = 30         # phase 11: the first 30 of 10a's u8 orbit
+SEQ_FRAMES = 20             # phase 11's RGB-D, KITTI stereo and EuRoC runs
+MAP_FRAME = 15              # phase 11d: the view relocalized on a loaded map
+MAP_MORE_FRAMES = 5         # ... and the frames tracked after it
+MAX_LOAD_DIFF = 1e-4        # used-System load against a fresh System's
+# EuRoC cam0's intrinsics (examples/settings/euroc_mono.yaml) without its
+# distortion: the renderer is a pinhole.
+EUROC_W, EUROC_H = 752, 480
+EUROC_K = (458.654, 457.296, 367.215, 248.375)
 # H100 SXM peaks (NVIDIA data sheet, dense): device memory bytes/s and
 # float32 operations/s outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
@@ -892,6 +934,31 @@ def rgbd_phase(torch, kernels, card) -> dict:
                 launches=launches)
 
 
+def memoize_renders(synthetic) -> dict:
+    """Serve PlanarSceneRenderer.render from a cache keyed on the texture,
+    the camera and the pose, and return the cache. Later phases render poses
+    of earlier ones again (10b phase 7's circle, 10c phase 8's pairs, phase
+    11 those of 10a, 9 and 8), each render a minute's share of host time
+    on the card's machine; a hit is a copy of the same image."""
+    cls = synthetic.PlanarSceneRenderer
+    orig = cls.render
+    cache: dict = {}
+
+    def render(self, Tcw):
+        tex = getattr(self, "_tex_key", None)
+        if tex is None or tex[0] is not self.texture:
+            digest = hashlib.sha1(np.ascontiguousarray(self.texture)).hexdigest()
+            tex = self._tex_key = (self.texture, digest)
+        T = np.asarray(Tcw)
+        key = (tex[1], self.K.tobytes(), self.width, self.height,
+               self.tex_scale, self.supersample, T.dtype.str, T.tobytes())
+        if key not in cache:
+            cache[key] = orig(self, Tcw)
+        return cache[key].copy()
+    cls.render = render
+    return cache
+
+
 class BuildCount:
     """Counts frame builds while active (FrameBuilder._frame runs once per
     build, whichever builder and sensor)."""
@@ -1164,6 +1231,329 @@ def realtime_phase(torch, kernels, card, classic_frame_ms: float) -> dict:
                 wall_s=wall_s)
 
 
+class FetchTimer:
+    """Host ms of each PrefetchLoader.fetch while active: how long the
+    driver waited for a decoded frame."""
+
+    def __init__(self, native):
+        self.ms = []
+        self._cls = native.PrefetchLoader
+        self._orig = None
+
+    def __enter__(self):
+        orig = self._orig = self._cls.fetch
+
+        def timed(loader, idx):
+            t0 = time.perf_counter()
+            out = orig(loader, idx)
+            self.ms.append(1e3 * (time.perf_counter() - t0))
+            return out
+        self._cls.fetch = timed
+        return self
+
+    def __exit__(self, *exc):
+        self._cls.fetch = self._orig
+
+
+def sequences_phase(torch, kernels, card) -> dict:
+    """Phase 11 (see the module docstring); returns its numbers."""
+    import contextlib
+    import io
+    import re
+
+    from orb_slam_system_tpu_torch import native
+    from orb_slam_system_tpu_torch.config import (CameraConfig, ORBConfig,
+                                                  Sensor, SlamConfig,
+                                                  TrackingState, load_settings,
+                                                  save_settings_yaml)
+    from orb_slam_system_tpu_torch.dataio import layouts
+    from orb_slam_system_tpu_torch.dataio import trajectory as traj_io
+    from orb_slam_system_tpu_torch.dataio.synthetic import (
+        PlanarSceneRenderer, make_texture, orbit_trajectory)
+    from orb_slam_system_tpu_torch.drivers import (mono_euroc, mono_synthetic,
+                                                   mono_tum, rgbd_synthetic,
+                                                   rgbd_tum, run_dataset,
+                                                   stereo_kitti)
+    from orb_slam_system_tpu_torch.models import frame as frame_mod
+    from orb_slam_system_tpu_torch.models.system import System
+    from orb_slam_system_tpu_torch.vocab.vocabulary import generate_orbvoc
+
+    t_phase = time.perf_counter()
+    OK = int(TrackingState.OK)
+
+    # 11a: the native decoder.
+    gxx = subprocess.run(["g++", "--version"], capture_output=True, text=True)
+    if gxx.returncode != 0:
+        fail(f"g++ --version failed: {gxx.stderr.strip()}")
+    t0 = time.perf_counter()
+    lib_path = native.build()
+    native.library()
+    nat = dict(gxx=gxx.stdout.splitlines()[0],
+               build_s=time.perf_counter() - t0, library=str(lib_path))
+    print(f"native decoder: {nat['gxx']}; built {lib_path} in "
+          f"{nat['build_s']:.1f} s", flush=True)
+
+    def u8(img):
+        return np.clip(img, 0, 255).astype(np.uint8)
+
+    root_dir = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_seq_")
+    root = tmp.name
+    t0 = time.perf_counter()
+    # 11b: TUM mono, the first frames of 10a's u8 orbit (its renderer:
+    # mono_synthetic.make_renderer at 640x480).
+    texture = make_texture(2048, 8, 7)
+    cfg_m = mono_synthetic.make_config(640, 480, 1000)
+    poses_m = orbit_trajectory(REALTIME_FRAMES, radius=0.35, depth=-2.0,
+                               tilt=0.3)[:SEQ_TUM_FRAMES]
+    r_m = PlanarSceneRenderer(cfg_m.camera.K, 640, 480, texture=texture,
+                              tex_scale=TEX_SCALE)
+    frames_m = [u8(r_m.render(T)) for T in poses_m]
+    tum = os.path.join(root, "tum_mono")
+    layouts.write_tum(tum, frames_m, [i / 30.0 for i in range(SEQ_TUM_FRAMES)],
+                      poses_m)
+    save_settings_yaml(cfg_m, os.path.join(root, "tum_mono.yaml"))
+    voc = os.path.join(root, "voc_k10_L2.txt")
+    generate_orbvoc(voc, k=10, L=2, seed=0)
+    # TUM RGB-D: phase 9's camera and orbit, depth x 5000 in 16-bit PNGs.
+    cam_d = CameraConfig(fx=520.0, fy=520.0, cx=320.0, cy=240.0, fps=30.0,
+                         width=640, height=480, bf=40.0)
+    cfg_d = SlamConfig(camera=cam_d, orb=ORBConfig(n_features=1000),
+                       sensor=Sensor.RGBD, th_depth=40.0 * 40.0 / 520.0,
+                       depth_map_factor=rgbd_synthetic.DEPTH_MAP_FACTOR)
+    r_d = PlanarSceneRenderer(cam_d.K, 640, 480, texture=texture,
+                              tex_scale=TEX_SCALE)
+    poses_d = orbit_trajectory(RGBD_FRAMES + LOCALIZE_FRAMES, radius=0.35,
+                               depth=-2.0, tilt=0.3)[:SEQ_FRAMES]
+    rgbd = os.path.join(root, "tum_rgbd")
+    layouts.write_tum(
+        rgbd, [u8(r_d.render(T)) for T in poses_d],
+        [i / 30.0 for i in range(SEQ_FRAMES)], poses_d,
+        [np.round(r_d.render_depth(T) * cfg_d.depth_map_factor)
+         .astype(np.uint16) for T in poses_d])
+    save_settings_yaml(cfg_d, os.path.join(root, "tum_rgbd.yaml"))
+    # KITTI stereo: phase 8's first pairs at KITTI 00-02's settings (as
+    # stereo_synthetic.render_pairs makes them).
+    cfg_k = load_settings(os.path.join(root_dir, "examples", "settings",
+                                       "kitti00-02.yaml"), Sensor.STEREO)
+    cam_k = cfg_k.camera
+    r_k = PlanarSceneRenderer(cam_k.K, cam_k.width, cam_k.height,
+                              texture=texture, tex_scale=TEX_SCALE)
+    poses_k = orbit_trajectory(STEREO_FRAMES, radius=0.35, depth=-2.0,
+                               tilt=0.3)[:SEQ_FRAMES]
+    pairs = [r_k.render_stereo(T, cam_k.bf / cam_k.fx) for T in poses_k]
+    kitti = os.path.join(root, "kitti_00")
+    kitti_gt = layouts.write_kitti(
+        kitti, [u8(p[0]) for p in pairs], [0.1 * i for i in range(SEQ_FRAMES)],
+        poses_k, [u8(p[1]) for p in pairs])
+    # EuRoC mono: cam0's intrinsics, no distortion, 20 Hz.
+    fx, fy, cx, cy = EUROC_K
+    cam_e = CameraConfig(fx=fx, fy=fy, cx=cx, cy=cy, fps=20.0, width=EUROC_W,
+                         height=EUROC_H)
+    cfg_e = SlamConfig(camera=cam_e, orb=ORBConfig(n_features=1000),
+                       sensor=Sensor.MONOCULAR)
+    r_e = PlanarSceneRenderer(cam_e.K, EUROC_W, EUROC_H, texture=texture,
+                              tex_scale=TEX_SCALE)
+    poses_e = orbit_trajectory(SYSTEM_FRAMES, radius=0.35, depth=-2.0,
+                               tilt=0.3)[:SEQ_FRAMES]
+    euroc = os.path.join(root, "MH_synthetic")
+    euroc_ts = layouts.write_euroc(
+        euroc, [u8(r_e.render(T)) for T in poses_e],
+        [1403636579763555584 + 50_000_000 * i for i in range(SEQ_FRAMES)],
+        poses_e)
+    save_settings_yaml(cfg_e, os.path.join(root, "euroc_mono.yaml"))
+    print(f"sequences written in {time.perf_counter() - t0:.1f} s (PNG: 8-bit "
+          f"frames, 16-bit depth) under {root}", flush=True)
+
+    # 11c: each sequence through run_dataset, in this process.
+    def run(label, module, argv, n_frames):
+        """(System, ATE m, run numbers) of run_dataset.main(argv), whose
+        driver `module` makes one System; fails the run on a nonzero exit."""
+        made = []
+
+        def make(*a, **kw):
+            made.append(System(*a, **kw))
+            return made[-1]
+        buf = io.StringIO()
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        module.System = make
+        t0 = time.perf_counter()
+        try:
+            with BuildCount(frame_mod) as builds, FetchTimer(native) as fetches, \
+                    contextlib.redirect_stdout(buf):
+                rc = run_dataset.main(argv + [
+                    "--device", "cuda", "--out-dir", os.path.join(root, label)])
+        finally:
+            module.System = System
+            out = buf.getvalue()
+            print("".join(f"  {label}| {line}\n" for line in out.splitlines()),
+                  end="", flush=True)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+        if rc != 0 or len(made) != 1:
+            fail(f"{label}: run_dataset exited {rc} ({len(made)} Systems)")
+        m = re.search(r"absolute_translational_error\.rmse (\S+)", out)
+        if m is None or "gate PASS" not in out:
+            fail(f"{label}: no ATE gate passed")
+        slam = made[0]
+        recs = slam.telemetry.records
+        states = [r["state"] for r in recs]
+        init = next((i for i, st in enumerate(states) if st == OK), None)
+        res = dict(frames=len(recs), builds=builds.n, launches=launches,
+                   tracked=sum(st == OK for st in states), init_frame=init,
+                   tracked_after_init=(sum(st == OK for st in states[init + 1:])
+                                       / max(len(states) - init - 1, 1)
+                                       if init is not None else 0.0),
+                   keyframes=slam.arena.n_keyframes(),
+                   points=slam.arena.n_points(), ate_cm=100 * float(m.group(1)),
+                   wall_s=wall_s,
+                   track_ms_median=statistics.median(r["track_ms"] for r in recs),
+                   fetch_ms_median=statistics.median(fetches.ms),
+                   fetch_ms_max=max(fetches.ms), fetches=len(fetches.ms))
+        print(f"{label}: {res['frames']} frames read and tracked in "
+              f"{wall_s:.1f} s; initialized at frame {init}, {res['tracked']}/"
+              f"{n_frames} OK ({100 * res['tracked_after_init']:.1f}% after "
+              f"initialization), {res['keyframes']} keyframes, {res['points']} "
+              f"points; ATE {res['ate_cm']:.3f} cm; track median "
+              f"{res['track_ms_median']:.3f} ms, wait on the prefetch ring "
+              f"median {res['fetch_ms_median']:.3f} ms, max "
+              f"{res['fetch_ms_max']:.3f} ms over {res['fetches']} fetches; "
+              f"{builds.n} builds, launches {launches}; {card}", flush=True)
+        if res["frames"] != n_frames or f"Images in the sequence: {n_frames}" not in out:
+            fail(f"{label}: {res['frames']} frames tracked of {n_frames}")
+        check_build_launches(label, launches, builds.n)
+        return slam, res
+
+    runs = {}
+    slam_m, runs["tum_mono"] = run(
+        "tum_mono", mono_tum,
+        [tum, "--voc", voc, "--settings", os.path.join(root, "tum_mono.yaml"),
+         "--max-ate", str(MAX_ATE_M)], SEQ_TUM_FRAMES)
+    r = runs["tum_mono"]
+    if slam_m.get_tracking_state() != TrackingState.OK:
+        fail(f"tum_mono ends {slam_m.get_tracking_state().name}")
+    if r["keyframes"] < 3 or r["points"] <= 150:
+        fail(f"tum_mono map: {r['keyframes']} keyframes, {r['points']} points")
+    _, runs["tum_rgbd"] = run(
+        "tum_rgbd", rgbd_tum,
+        [rgbd, "--settings", os.path.join(root, "tum_rgbd.yaml"),
+         "--max-ate", str(MAX_RGBD_ATE_M)], SEQ_FRAMES)
+    if runs["tum_rgbd"]["tracked"] < SEQ_FRAMES - 2:
+        fail(f"tum_rgbd tracked {runs['tum_rgbd']['tracked']} of {SEQ_FRAMES}")
+    _, runs["kitti_stereo"] = run(
+        "kitti_stereo", stereo_kitti,
+        [kitti, "--sensor", "stereo", "--gt", kitti_gt,
+         "--max-ate", str(MAX_STEREO_ATE_M)], SEQ_FRAMES)
+    if runs["kitti_stereo"]["tracked"] < MIN_TRACKED_SHARE * SEQ_FRAMES:
+        fail(f"kitti_stereo tracked {runs['kitti_stereo']['tracked']}")
+    _, runs["euroc_mono"] = run(
+        "euroc_mono", mono_euroc,
+        [euroc, "--timestamps", euroc_ts, "--settings",
+         os.path.join(root, "euroc_mono.yaml"), "--max-ate", str(MAX_ATE_M)],
+        SEQ_FRAMES)
+    if runs["euroc_mono"]["tracked_after_init"] < MIN_TRACKED_SHARE:
+        fail(f"euroc_mono tracked {runs['euroc_mono']['tracked_after_init']:.2f}"
+             f" of the frames after initialization")
+
+    # 11d: the TUM run's map saved, loaded into a fresh System, then into
+    # the run's own.
+    map_path = os.path.join(root, "tum_mono_map.npz")
+    t0 = time.perf_counter()
+    slam_m.save_map(map_path)
+    save_ms = 1e3 * (time.perf_counter() - t0)
+    n_bytes = os.path.getsize(map_path)
+    fp = [(int(round(ts * 30.0)), T) for ts, T, lost in
+          traj_io.frame_poses(slam_m.arena, slam_m.tracker.trajectory)
+          if not lost]
+    tracked_T = dict(fp)
+    if MAP_FRAME not in tracked_T:
+        fail(f"the TUM run did not track frame {MAP_FRAME}")
+    P = np.stack([-T[:3, :3].T @ T[:3, 3] for _, T in fp])
+    Q = np.stack([-poses_m[i][:3, :3].T @ poses_m[i][:3, 3] for i, _ in fp])
+    Pa = traj_io.umeyama_align(P, Q)
+    m_per_unit = float(np.sqrt(((Pa - Pa.mean(0)) ** 2).sum()
+                               / ((P - P.mean(0)) ** 2).sum()))
+    n_kf = slam_m.arena.n_keyframes()
+    fresh = System(cfg_m, device="cuda", vocabulary_path=voc)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fresh.load_map(map_path, localization_only=True)
+    torch.cuda.synchronize()
+    load_ms = 1e3 * (time.perf_counter() - t0)
+    kernels.reset_launch_counts()
+    with BuildCount(frame_mod) as builds:
+        t0 = time.perf_counter()
+        T_fresh = fresh.track_monocular(frames_m[MAP_FRAME], 100.0)
+        torch.cuda.synchronize()
+        reloc_ms = 1e3 * (time.perf_counter() - t0)
+        more = [fresh.track_monocular(frames_m[i], 100.0 + i) is not None
+                and fresh.get_tracking_state() == TrackingState.OK
+                for i in range(MAP_FRAME + 1, MAP_FRAME + 1 + MAP_MORE_FRAMES)]
+    torch.cuda.synchronize()
+    map_launches = dict(kernels.LAUNCHES)
+    ok_fresh = T_fresh is not None and all(more)
+    err_m = (float(np.linalg.norm(-T_fresh[:3, :3].T @ T_fresh[:3, 3]
+                                  + tracked_T[MAP_FRAME][:3, :3].T
+                                  @ tracked_T[MAP_FRAME][:3, 3])) * m_per_unit
+             if T_fresh is not None else float("inf"))
+    slam_m.load_map(map_path)
+    T_used = slam_m.track_monocular(frames_m[MAP_FRAME], 100.0)
+    diff = (float(np.abs(T_used - T_fresh).max())
+            if T_used is not None and T_fresh is not None else float("inf"))
+    maps = dict(bytes=n_bytes, keyframes=n_kf, points=slam_m.arena.n_points(),
+                bytes_per_keyframe=n_bytes / max(n_kf, 1), save_ms=save_ms,
+                load_ms=load_ms, reloc_ms=reloc_ms, reloc_err_cm=100 * err_m,
+                more_ok=more, keyframes_after=fresh.arena.n_keyframes(),
+                used_vs_fresh_max_abs=diff, reloc_stats=dict(fresh.tracker.reloc_stats),
+                builds=builds.n, launches=map_launches)
+    print(f"map: {n_bytes} bytes for {n_kf} keyframes and {maps['points']} "
+          f"points ({maps['bytes_per_keyframe']:.0f} bytes a keyframe); save "
+          f"{save_ms:.1f} ms, load into a fresh System {load_ms:.1f} ms (file, "
+          f"swap, BoW index); frame {MAP_FRAME}'s view relocalized in "
+          f"{reloc_ms:.1f} ms, camera centre {100 * err_m:.3f} cm from the "
+          f"tracked pose; {MAP_MORE_FRAMES} more frames OK {more}, keyframes "
+          f"{maps['keyframes_after']} (were {n_kf}); loaded into the run's "
+          f"own System: first pose max |diff| {diff:.3g} against the fresh "
+          f"System's; {builds.n} builds, launches {map_launches}; {card}",
+          flush=True)
+    if not ok_fresh:
+        fail(f"localization on the loaded map: first pose {T_fresh is not None}"
+             f", later frames OK {more}")
+    if not err_m < MAX_RELOC_ERR_M:
+        fail(f"relocalized {100 * err_m:.3f} cm from the tracked pose")
+    if maps["keyframes_after"] != n_kf:
+        fail(f"localization mode added keyframes: {maps['keyframes_after']}")
+    if not diff <= MAX_LOAD_DIFF:
+        fail(f"a load into the used System differs from a fresh one by {diff}")
+    check_build_launches("map localization", map_launches, builds.n)
+
+    # 11e: decode ms per frame against track ms per frame.
+    paths = [os.path.join(tum, "rgb", f"{i / 30.0:.6f}.png")
+             for i in range(SEQ_TUM_FRAMES)]
+    t0 = time.perf_counter()
+    for p in paths:
+        native.decode_gray(p)
+    one_shot = 1e3 * (time.perf_counter() - t0) / len(paths)
+    t0 = time.perf_counter()
+    with native.PrefetchLoader(paths) as ring:
+        for i in range(len(paths)):
+            ring.fetch(i)
+    ring_ms = 1e3 * (time.perf_counter() - t0) / len(paths)
+    decode = dict(one_shot_ms=one_shot, ring_ms=ring_ms,
+                  waits_ms={k: v["fetch_ms_median"] for k, v in runs.items()},
+                  track_ms={k: v["track_ms_median"] for k, v in runs.items()})
+    print(f"decode ms per 640x480 PNG frame: one-shot {one_shot:.3f}, through "
+          f"the prefetch ring with no consumer work {ring_ms:.3f}; the drivers' "
+          f"median wait on the ring {decode['waits_ms']} against their track "
+          f"median {decode['track_ms']} (host clock); {card}", flush=True)
+    tmp.cleanup()
+    wall_s = time.perf_counter() - t_phase
+    print(f"phase 11 in {wall_s:.1f} s", flush=True)
+    return dict(native=nat, runs=runs, map=maps, decode=decode, wall_s=wall_s)
+
+
 def main() -> None:
     try:
         import torch
@@ -1195,6 +1585,13 @@ def main() -> None:
         fail(f"the port does not import (run from the repository root): {e}")
     if "jax" in sys.modules:
         fail("the port imported jax")
+    from orb_slam_system_tpu_torch.dataio import synthetic
+    renders = memoize_renders(synthetic)
+    t_script = time.perf_counter()
+
+    def phases_done(last: int) -> None:
+        print(f"phases 1-{last} done at {time.perf_counter() - t_script:.1f} s "
+              f"(renders cached: {len(renders)})", flush=True)
 
     # 1. The card.
     smi = subprocess.run(
@@ -1447,6 +1844,7 @@ def main() -> None:
           f"identical, {int(flips_u.sum())} angle-bin flips, descriptors "
           f"equal elsewhere", flush=True)
 
+    phases_done(3)
     # 4. The slice at full width; the counters count only this phase.
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
@@ -1544,6 +1942,7 @@ def main() -> None:
     profile_device(torch, "one pose optimization (4x10 LM, 1024 edges)", lm,
                    1e3 * (time.perf_counter() - t0))
 
+    phases_done(4)
     # 5. The System, the main path; the counters count only this phase.
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
@@ -1622,16 +2021,23 @@ def main() -> None:
                                  Vocabulary, traj_io, mono_synthetic,
                                  TrackingState, card)
 
+    phases_done(6)
     # 7. Loop closing; the counters count only this phase.
     loop = loop_phase(torch, dev, kernels, loop_synthetic, loop_closing, sim3,
                       pose_graph, local_ba, card)
 
     # 8. Stereo at KITTI width; 9. RGB-D and localization mode. The counters
     # count only each phase.
+    phases_done(7)
     stereo = stereo_phase(torch, kernels, check_kernel_b, card)
     rgbd = rgbd_phase(torch, kernels, card)
+    phases_done(9)
     # 10. The realtime modes; the counters count only each run.
     realtime = realtime_phase(torch, kernels, card, classic_frame_ms)
+    phases_done(10)
+    # 11. Sequences and maps from disk; the counters count only each run.
+    sequences = sequences_phase(torch, kernels, card)
+    phases_done(11)
     for name, key in (("fast_score_nms", "kernel_a"),
                       ("gather_blur_moments", "kernel_b")):
         r = stereo[key]
@@ -1654,7 +2060,10 @@ def main() -> None:
                 "realtime_pipelined": realtime["mono"]["launches"],
                 "realtime_stream": realtime["stream"]["launches"],
                 "realtime_loop": realtime["loop"]["launches"],
-                "realtime_stereo": realtime["stereo"]["launches"]}
+                "realtime_stereo": realtime["stereo"]["launches"],
+                **{f"seq_{k}": v["launches"]
+                   for k, v in sequences["runs"].items()},
+                "seq_map_localization": sequences["map"]["launches"]}
     counter = dict(fast_score_nms="fast_score_nms",
                    gather_blur_moments="gather_blur_describe",
                    brief_pack="brief_pack", gather_patches="gather_patches")
@@ -1662,6 +2071,7 @@ def main() -> None:
     print(json.dumps({"loop": loop}), flush=True)
     print(json.dumps({"stereo": stereo, "rgbd": rgbd}, default=str), flush=True)
     print(json.dumps({"realtime": realtime}, default=str), flush=True)
+    print(json.dumps({"sequences": sequences}, default=str), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": r["source"],

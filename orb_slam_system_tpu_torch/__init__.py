@@ -15,7 +15,11 @@ recognition with relocalization (vocab/, mapping/keyframe_db.py,
 models/place_recognition.py, solvers/pnp.py), loop closing with global BA
 (models/loop_closing.py), localization mode, and the realtime modes: the
 streaming mode and the pipelined device-state chain step
-(TrackPrograms.chain_step).
+(TrackPrograms.chain_step). Sequences and maps from disk: the dataset
+readers (dataio/datasets.py) over the native PNG/PNM decoder (native/,
+C++ built with g++ at first use), the TUM, KITTI and EuRoC drivers with
+drivers/run_dataset.py, and map save/load (mapping/serialize.py,
+System.save_map / load_map).
 """
 
 __version__ = "0.1.0"

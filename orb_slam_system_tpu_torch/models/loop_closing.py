@@ -106,6 +106,17 @@ class LoopCloser:
     def _t(self, a) -> torch.Tensor:
         return to_device(a, self.device)
 
+    def forget_map(self):
+        """Drop the detection state and any global BA of the map this
+        closer ran on (System.load_map replaces the map): the consistent
+        groups, the last loop's keyframe, a solve in flight and a result
+        not yet applied."""
+        self.gba.abort()
+        self.gba.take_result()
+        self.consistent_groups = []
+        self.last_loop_kf_id = -1
+        self.last_loop = None
+
     # ---- the loop thread's body (reference Run :28-41) ---------------------
 
     def process(self, kf_id: int) -> bool:
@@ -824,9 +835,15 @@ class GBARunner:
         return t is not None and t.is_alive()
 
     def abort(self):
+        """Stop the solve in flight and drop its result, also one stored
+        before the worker saw the flag (a solve that ends before the
+        caller reaches abort()); the JAX GBARunner.abort
+        (models/loop_closing.py:945-950) keeps such a result."""
         self._abort = True
         self.join()
         self._thread = None
+        with self._lock:
+            self._result = None
 
     def join(self):
         t = self._thread

@@ -107,3 +107,17 @@ class PlaceRecognition:
     def reset(self):
         if self.db is not None:
             self.db.clear()
+
+    def rebuild(self, arena: MapArena, vocab: Optional[Vocabulary]):
+        """Index a map that replaced the old one (System.load_map). With
+        `vocab`, a loaded vocabulary, every keyframe's BoW and nodes are
+        computed against it; without one the vocabulary is self-trained
+        anew from the map's keyframes, as a fresh System's would be."""
+        self.vocab = vocab
+        self.db = KeyFrameDatabase(vocab) if vocab is not None else None
+        if vocab is None:
+            self.maybe_self_train(arena)
+            return
+        for kf in arena.kfs.values():
+            self._compute_bow(kf)
+            self.db.add(kf.id, kf.bow)

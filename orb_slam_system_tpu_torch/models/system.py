@@ -38,7 +38,9 @@ order is System._lock > arena.correction_lock > arena.lock. The mapper
 worker and the global-BA thread queue their device work on the default
 CUDA stream, as tracking does, so the card runs it in one order.
 
-Not in this port yet: the viewer, map save/load.
+Map persistence: save_map / load_map (mapping/serialize.py's .npz, read
+by both packages); a loaded map is relocalized against, by default in
+localization mode. Not in this port yet: the viewer.
 """
 
 from __future__ import annotations
@@ -54,6 +56,7 @@ import torch
 from orb_slam_system_tpu_torch.config import (Sensor, SlamConfig,
                                               TrackingState, load_settings)
 from orb_slam_system_tpu_torch.dataio import trajectory as traj_io
+from orb_slam_system_tpu_torch.mapping import serialize
 from orb_slam_system_tpu_torch.mapping.arena import MapArena
 from orb_slam_system_tpu_torch.models.local_mapping import LocalMapper
 from orb_slam_system_tpu_torch.models.loop_closing import LoopCloser
@@ -421,6 +424,57 @@ class System:
     SaveTrajectoryTUM = save_trajectory_tum
     SaveKeyFrameTrajectoryTUM = save_keyframe_trajectory_tum
     SaveTrajectoryKITTI = save_trajectory_kitti
+
+    # ---- map persistence (the reference's TODO, include/System.h:94-96) ----
+
+    def save_map(self, path: str):
+        """Write the map to `path` (.npz, mapping/serialize.py's format,
+        which the JAX package reads too). Between frames, with the mapping
+        worker drained, so no stage is half done in the file."""
+        with self._lock:
+            self.local_mapper.flush()
+            with self.arena.correction_lock:
+                serialize.save_map(self.arena, path)
+
+    def load_map(self, path: str, localization_only: bool = True):
+        """Replace the map with the one saved at `path` and resume: the
+        state becomes LOST, so the next frame relocalizes against it; with
+        localization_only (the default) the System then tracks without
+        adding keyframes. A load into a System that has tracked gives what
+        a load into a fresh one gives.
+
+        Departs from the JAX System.load_map (models/system.py:694-721),
+        which swaps arena.kfs / arena.mps without arena.lock while the
+        async worker may be mid-stage, bumps neither arena.version nor
+        arena.pose_epoch, and keeps the old map's tombstones, the tracker's
+        trajectory and caches and the loop closer's detection state: here
+        the worker is drained and the global BA dropped first, the swap
+        runs under correction_lock and arena.lock, and all of those are
+        cleared, so no cache keyed on (keyframe ids, version) serves the
+        old map's block to the new map."""
+        loaded = serialize.load_map(path)
+        with self._lock:
+            self.local_mapper.reset()
+            self.loop_closer.forget_map()
+            arena = self.arena
+            with arena.correction_lock, arena.lock:
+                arena.kfs, arena.mps = loaded.kfs, loaded.mps
+                arena.dead_kfs.clear()
+                arena.dead_mps.clear()
+                arena.next_kf_id = loaded.next_kf_id
+                arena.next_mp_id = loaded.next_mp_id
+                arena.kf_origin_id = loaded.kf_origin_id
+                arena.version += 1
+                arena.pose_epoch += 1
+                self.place_rec.rebuild(arena, self.vocabulary)
+                self.tracker.forget_map()
+            if localization_only:
+                self.activate_localization_mode()
+            else:
+                self.deactivate_localization_mode()
+
+    SaveMap = save_map
+    LoadMap = load_map
 
     def timing_report(self):
         """Median/mean per-frame time (tracking + mapping), the report the

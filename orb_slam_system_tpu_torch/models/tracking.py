@@ -1210,6 +1210,28 @@ class Tracker(InitAndKeyframes):
         self.local_kf_ids = []
         self.state = TrackingState.NOT_INITIALIZED
 
+    def forget_map(self):
+        """Drop everything tied to the map this tracker ran on, for a map
+        that replaces it (System.load_map): the frames and their motion
+        model, the reference keyframes, the local-map blocks cached on
+        (keyframe ids, arena.version), the chain's state and the trajectory.
+        The state becomes LOST, so the next frame relocalizes. The caller
+        holds the map's locks."""
+        self.velocity = None
+        self.last_frame = self.current = self.init_ref = None
+        self.prev_matched = None
+        self.ref_kf_id = self.last_kf_frame_id = self.last_kf_id = -1
+        self.local_kf_ids = []
+        self.trajectory = []
+        self.mb_vo = False
+        self.n_inliers = 0
+        self.frames_since_reloc = 10 ** 9
+        self._local_block_cache = self._chain_block_cache = None
+        self._chain_ninl_hist.clear()
+        self._inl_ema = 0.0
+        self._frame_epoch = self.arena.pose_epoch
+        self.state = TrackingState.LOST
+
     def _store_trajectory(self):
         cur = self.current
         if cur is None or cur.Tcw is None or cur.ref_kf_id < 0:

@@ -350,3 +350,42 @@ class Vocabulary:
             if v2 is not None:
                 s += abs(v1) + abs(v2) - abs(v1 - v2)
         return 0.5 * s
+
+
+def generate_orbvoc(path: str, k: int = 10, L: int = 6, seed: int = 0):
+    """Write a full k-ary depth-L vocabulary with random centroids and
+    IDF-like leaf weights, made from `seed`, in the ORBvoc.txt text format
+    (a copy of the JAX package's tools/make_full_vocab.py generate): a
+    stand-in of the real file's shape where the file is not at hand. Nodes
+    are written level by level, so each parent's children are contiguous,
+    the order `load` relies on."""
+    rng = np.random.default_rng(seed)
+    with open(path, "w") as f:
+        # Header: k L scoring_type weighting_type (L1_NORM=0, TF_IDF=0).
+        f.write(f"{k} {L} 0 0\n")
+        first_id = 1
+        parent_first = 0
+        n_parents = 1
+        for lvl in range(1, L + 1):
+            n_nodes = n_parents * k
+            parents = np.repeat(
+                np.arange(parent_first, parent_first + n_parents,
+                          dtype=np.int64), k)
+            is_leaf = int(lvl == L)
+            descs = rng.integers(0, 256, size=(n_nodes, 32), dtype=np.uint8)
+            if is_leaf:
+                # Most words rare (high weight), some common: an
+                # exponential spread like the real file's.
+                w = rng.exponential(scale=1.0, size=n_nodes).astype(
+                    np.float32) * 1e-4
+            else:
+                w = np.zeros(n_nodes, np.float32)
+            arr = np.empty((n_nodes, 35), np.float64)
+            arr[:, 0] = parents
+            arr[:, 1] = is_leaf
+            arr[:, 2:34] = descs
+            arr[:, 34] = w
+            np.savetxt(f, arr, fmt="%d %d" + " %d" * 32 + " %.8g")
+            parent_first = first_id
+            first_id += n_nodes
+            n_parents = n_nodes

@@ -121,6 +121,18 @@ def test_gba_abort_discards_result(rng):
     assert not closer.poll_gba()
 
 
+def test_gba_abort_after_finish_discards_result(rng):
+    """The solve ends before abort(): the result is dropped all the same
+    (the JAX runner keeps it, which races its own abort test under load)."""
+    arena, kfs, world = build_map(rng)
+    closer = make_closer(arena)
+    closer.gba.start(closer._build_gba_problem(), closer.cfg.camera, sync=False)
+    closer.gba.join()
+    closer.gba.abort()
+    assert closer.gba.take_result() is None
+    assert not closer.poll_gba()
+
+
 def test_gba_async_roundtrip(rng):
     arena, kfs, world = build_map(rng)
     closer = make_closer(arena)

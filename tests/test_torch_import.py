@@ -17,7 +17,12 @@ for new in ("vocab.vocabulary", "mapping.keyframe_db",
             "models.place_recognition", "solvers.pnp", "solvers.sim3",
             "solvers.pose_graph", "models.loop_closing",
             "drivers.loop_synthetic", "ops.stereo", "drivers.stereo_synthetic",
-            "drivers.rgbd_synthetic"):
+            "drivers.rgbd_synthetic", "native", "dataio.datasets",
+            "dataio.layouts", "models.viewer", "mapping.serialize",
+            "drivers._driver_util", "drivers.mono_tum", "drivers.rgbd_tum",
+            "drivers.mono_kitti", "drivers.stereo_kitti", "drivers.mono_euroc",
+            "drivers.stereo_euroc", "drivers.evaluate_ate",
+            "drivers.run_dataset"):
     assert pkg.__name__ + "." + new in names, new
 for n in names:
     importlib.import_module(n)
@@ -25,12 +30,15 @@ import inspect
 from orb_slam_system_tpu_torch.models.system import System
 for m in ("track_monocular_stream", "track_monocular_pipelined",
           "track_stereo_pipelined", "track_rgbd_pipelined",
-          "track_monocular_prebuilt"):
+          "track_monocular_prebuilt", "save_map", "load_map"):
     assert callable(getattr(System, m)), m
+from orb_slam_system_tpu_torch import native
+assert native._lib is None, "the native decoder was built at import"
 assert "async_mapping" in inspect.signature(System).parameters
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.")
-             or m == "orb_slam_system_tpu" or m.startswith("orb_slam_system_tpu."))
+             or m == "orb_slam_system_tpu" or m.startswith("orb_slam_system_tpu.")
+             or m.split(".")[0] in ("tools", "examples"))
 assert not bad, bad
 assert "triton" not in sys.modules
 print(len(names))
@@ -74,10 +82,11 @@ def _run(code):
 
 def test_port_never_imports_jax():
     """Every module of the port (walked, so new ones are covered; the
-    place-recognition, relocalization and loop-closing modules named),
-    chip_smoke.py and kernel_times.py import without jax or the JAX
-    package, and the System has its realtime entry points."""
-    assert int(_run(_IMPORT_ALL).split()[-1]) >= 48
+    place-recognition, relocalization, loop-closing and dataset modules
+    named), chip_smoke.py and kernel_times.py import without jax, the JAX
+    package, tools/ or examples/, and without building the native decoder;
+    the System has its realtime and map entry points."""
+    assert int(_run(_IMPORT_ALL).split()[-1]) >= 63
 
 
 def test_entry_points_default_to_the_card():
@@ -97,6 +106,10 @@ def test_entry_points_default_to_the_card():
                   PlaceRecognition, LoopCloser, mono_synthetic.run,
                   loop_synthetic.run):
         assert inspect.signature(entry).parameters["device"].default == "cuda", entry
+    from orb_slam_system_tpu_torch.drivers import _driver_util, run_dataset
+    assert run_dataset.parse_args(["seq"]).device == "cuda"
+    assert _driver_util.parse_args("", ["path_to_vocabulary"],
+                                   ["none"]).device == "cuda"
 
 
 def test_wrappers_take_plain_path_on_cpu():

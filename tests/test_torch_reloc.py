@@ -135,3 +135,129 @@ def test_decoy_candidates_first(systems, monkeypatch):
     Tcw = port.track_monocular(frames[MID], 300.0)
     assert len(calls["list"]) > 6
     assert port.get_tracking_state() == TrackingState.OK and Tcw is not None
+
+
+# ---- maps on disk (tests/test_reloc_loop.py:79-105 on the port) ------------
+
+def _assert_arena_read_back(arena, jarena):
+    """jarena (the JAX package's load_map of a file the port wrote) holds
+    arena's ids, records, observations and topology, and its arrays."""
+    assert (jarena.next_kf_id, jarena.next_mp_id, jarena.kf_origin_id) == \
+        (arena.next_kf_id, arena.next_mp_id, arena.kf_origin_id)
+    assert sorted(jarena.kfs) == sorted(arena.kfs)
+    assert sorted(jarena.mps) == sorted(arena.mps)
+    for k, kf in arena.kfs.items():
+        jkf = jarena.kfs[k]
+        n = kf.feats.n_slots
+        assert (jkf.frame_id, jkf.timestamp, jkf.parent) == \
+            (kf.frame_id, kf.timestamp, kf.parent)
+        assert jkf.covis == kf.covis and jkf.loop_edges == kf.loop_edges
+        assert jkf.children == {c for c in kf.children if c in arena.kfs}
+        np.testing.assert_array_equal(jkf.Tcw, kf.Tcw)
+        np.testing.assert_array_equal(jkf.mp_ids[:n], kf.mp_ids)
+        assert (jkf.mp_ids[n:] == -1).all() and not jkf.feats.valid[n:].any()
+        for f in ("xy", "xy_und", "response", "angle", "octave", "desc",
+                  "valid", "u_right", "depth"):
+            a, b = getattr(kf.feats, f), getattr(jkf.feats, f)
+            if a is None:
+                assert b is None, f
+            else:
+                np.testing.assert_array_equal(b[:n], a, err_msg=f)
+        np.testing.assert_array_equal(jkf.node_ids[:n], kf.node_ids)
+    for m, mp in arena.mps.items():
+        jmp = jarena.mps[m]
+        assert jmp.obs == mp.obs
+        assert (jmp.min_dist, jmp.max_dist, jmp.ref_kf, jmp.first_kf_id,
+                jmp.n_visible, jmp.n_found) == (
+            mp.min_dist, mp.max_dist, mp.ref_kf, mp.first_kf_id,
+            mp.n_visible, mp.n_found)
+        for f in ("pos", "desc", "normal"):
+            np.testing.assert_array_equal(getattr(jmp, f), getattr(mp, f))
+
+
+def test_port_map_read_by_jax(systems, tmp_path):
+    """System.save_map writes the format the JAX package reads: its
+    load_map gives the port arena's ids, observations, covisibility, loop
+    edges and parents, and its arrays, padded slots included. A keyframe's
+    stereo channels (u_right / depth, format v2) cross too."""
+    from orb_slam_system_tpu.mapping import serialize as jserialize
+    from orb_slam_system_tpu_torch.mapping import serialize
+
+    port = systems[0]
+    path = str(tmp_path / "port_map.npz")
+    port.save_map(path)
+    slots = {kf.feats.n_slots for kf in port.arena.kfs.values()}
+    assert len(slots) == 2          # the init keyframes' 2x slots padded
+    _assert_arena_read_back(port.arena, jserialize.load_map(path))
+    arena = serialize.load_map(path)
+    kf = arena.kfs[max(arena.kfs)]
+    rng = np.random.default_rng(0)
+    kf.feats.u_right = np.where(kf.feats.valid, rng.uniform(
+        10, 300, kf.feats.n_slots), -1.0).astype(np.float32)
+    kf.feats.depth = np.where(kf.feats.u_right >= 0, 2.0, -1.0).astype(
+        np.float32)
+    serialize.save_map(arena, path)
+    _assert_arena_read_back(arena, jserialize.load_map(path))
+
+
+def _localize(slam, frames, first):
+    """Track frames[first], frames[first + 1], frames[first + 2] on a
+    loaded map; returns their poses."""
+    return [slam.track_monocular(frames[i], 200.0 + i)
+            for i in range(first, first + 3)]
+
+
+def test_jax_map_localizes_in_port(systems, tmp_path):
+    """The JAX System's saved map loads into a fresh port System on the
+    CPU, and frame 12's view localizes against it without a new keyframe
+    (tests/test_reloc_loop.py:79-105's bar: OK, centre within 0.08 of the
+    pose JAX tracked for that frame)."""
+    from orb_slam_system_tpu.dataio.trajectory import frame_poses
+
+    port, jslam, frames = systems[:3]
+    path = str(tmp_path / "jax_map.npz")
+    jslam.save_map(path)
+    slam = System(port.cfg, device="cpu")
+    slam.load_map(path, localization_only=True)
+    n_kf = jslam.arena.n_keyframes()
+    assert slam.arena.n_keyframes() == n_kf
+    assert slam.arena.n_points() == jslam.arena.n_points()
+    for mp in slam.arena.mps.values():
+        for kf_id, idx in mp.obs.items():
+            if kf_id in slam.arena.kfs:
+                assert slam.arena.kfs[kf_id].mp_ids[idx] == mp.id
+    assert slam.place_rec.ready and slam.tracker.only_tracking
+    Tcw = slam.track_monocular(frames[12], 200.0)
+    assert slam.get_tracking_state() == TrackingState.OK and Tcw is not None
+    assert slam.arena.n_keyframes() == n_kf
+    fp = frame_poses(jslam.arena, jslam.tracker.trajectory)
+    T_ref = next(T for ts, T, lost in fp
+                 if abs(ts - 12 / 30.0) < 1e-9 and not lost)
+    assert np.linalg.norm(_centre(Tcw) - _centre(T_ref)) < 0.08
+
+
+def test_load_into_used_system_equals_fresh(systems, tmp_path):
+    """Fault 3 of the JAX System.load_map: a load into a System that has
+    tracked (its own map, caches on (keyframe ids, version), trajectory,
+    self-trained vocabulary) gives what a load into a fresh System gives,
+    frame for frame; and the old map leaves nothing behind."""
+    port, jslam, frames = systems[:3]
+    path = str(tmp_path / "map.npz")
+    jslam.save_map(path)
+    fresh = System(port.cfg, device="cpu")
+    fresh.load_map(path)
+    version, epoch = port.arena.version, port.arena.pose_epoch
+    port.load_map(path)
+    assert port.arena.version > version and port.arena.pose_epoch > epoch
+    assert not port.arena.dead_kfs and not port.arena.dead_mps
+    assert port.tracker.trajectory == [] and port.tracker.last_frame is None
+    assert port.loop_closer.consistent_groups == []
+    assert port.place_rec.db.bows == fresh.place_rec.db.bows
+    got, want = _localize(port, frames, 12), _localize(fresh, frames, 12)
+    for T, T_fresh in zip(got, want):
+        assert T is not None and T_fresh is not None
+        np.testing.assert_allclose(T, T_fresh, atol=1e-4)
+    assert port.get_tracking_state() == fresh.get_tracking_state() == \
+        TrackingState.OK
+    assert port.arena.n_keyframes() == fresh.arena.n_keyframes() == \
+        jslam.arena.n_keyframes()
