@@ -64,7 +64,9 @@ Phases, each of which fails the run (exit code != 0) when it fails:
      during the run or at shutdown, the loop closer's funnel, the wall ms of
      each loop and mapping stage, and the device kernels and ms of
      sim3_ransac_batch, optimize_sim3, optimize_essential_graph and one
-     global-BA chunk, each re-run on the inputs the run gave it, and the
+     global-BA chunk, each re-run on the inputs the run gave it (the two
+     slow solves, optimize_sim3 and the essential graph, over one call
+     each, the others over three), and the
      global-BA solver the run did not take (dense Schur or PCG) on the
      same chunk;
   8. stereo at KITTI width: the KITTI 00-02 settings (1241x376, bf 386.1448,
@@ -141,6 +143,28 @@ Phases, each of which fails the run (exit code != 0) when it fails:
         relocalized pose must equal the fresh System's within 1e-4;
      e. print the decode ms per frame (one-shot, and through the prefetch
         ring as the drivers wait on it) beside the track ms per frame.
+ 12. the multi-sequence mode (BASELINE.json config 5), the counters read
+     around each run:
+     a. S = 5 full Systems through drivers/multiseq_throughput.run_full and
+        MultiSystem.track_batch, 30 frames each at the camera and extractor
+        of settings/euroc_mono.yaml (752x480 pinhole, 1000 features, 8
+        levels), synchronous mapping; per sequence the bars of
+        tests/test_multiseq_system.py (OK at the end, >= 3 keyframes, > 100
+        points, Sim3 ATE < 5 cm, a trajectory file of > 10 lines) plus >= 90%
+        tracked after initialization; one batched extraction per round with
+        a steady sequence and none otherwise, kernels A and B's describe
+        mode once per such round plus once per classic build; on one round's
+        images the batch-5 pack equal to five single packs bit for bit.
+        Print the aggregate fps, each sequence's track and mapping medians,
+        the batched extraction's share of a round, and kernels A and B at
+        batch 5 against their plain versions with times and bounds;
+     b. the batched front-end step (parallel/multiseq) through
+        run_frontend: 8 sequences at 320x240, 512 features, 4 levels, over
+        20 rendered frames (A and B once per step); its last call on the
+        card against the same step on the CPU (totals equal, poses within
+        1e-3, rotations orthonormal within 1e-3), then a tracked state the
+        same way (totals within 1%); print the step's kernels, device, call
+        and wall ms and the aggregate front-end fps.
 The synthetic frames are rendered on the host, and later phases render poses
 of earlier ones again: memoize_renders serves a repeat from a cache (the
 same image), and the script prints its clock after each phase. The
@@ -178,6 +202,7 @@ MAX_ATE_M = 0.03            # tests/test_e2e_mono.py bar
 LOOP_FRAMES = 90            # tests/test_e2e_loop.py's short circle
 MIN_LOOP_TRACKED = 80       # ... and its bars
 MAX_LOOP_ATE_M = 0.10
+SLOW_SOLVES = ("optimize_sim3", "optimize_essential_graph")  # timed over 1 call
 # Phases 8 and 9 ran 60 frames each until phase 10 came; 30 keep the
 # script's time (the bars are shares of the frames).
 STEREO_FRAMES = 30          # phase 8: KITTI-width stereo pairs
@@ -197,6 +222,11 @@ SEQ_FRAMES = 20             # phase 11's RGB-D, KITTI stereo and EuRoC runs
 MAP_FRAME = 15              # phase 11d: the view relocalized on a loaded map
 MAP_MORE_FRAMES = 5         # ... and the frames tracked after it
 MAX_LOAD_DIFF = 1e-4        # used-System load against a fresh System's
+MULTISEQ_SEQS = 5           # phase 12a: BASELINE.json config 5, MH01-05
+MULTISEQ_FRAMES = 30        # ... frames per sequence
+MAX_MULTISEQ_ATE_M = 0.05   # tests/test_multiseq_system.py's bar
+FRONTEND_SEQS = 8           # phase 12b: the JAX example's --frontend shape
+FRONTEND_FRAMES = 20
 # EuRoC cam0's intrinsics (examples/settings/euroc_mono.yaml) without its
 # distortion: the renderer is a pinhole.
 EUROC_W, EUROC_H = 752, 480
@@ -314,8 +344,12 @@ def stage_device_ms(torch, fn, reps: int = 20, required: bool = True):
     torch.cuda.synchronize()
     seen = []
     for _ in range(5):
-        one = _stage_window(torch, fn, 1)[0]
+        one, t_us, _ = _stage_window(torch, fn, 1)
         if one and one in seen:
+            if reps == 1:
+                # This window holds exactly one call's records: it is the
+                # window of `reps` calls.
+                return t_us / 1e3, sum(one.values())
             break
         seen.append(one)
     else:
@@ -398,6 +432,47 @@ def profile_device(torch, label: str, fn, wall_ms) -> None:
           f"time (profiler), wall {wall_ms:.3f} ms, device idle share "
           f"{1.0 - dev_ms / wall_ms:.3f}", flush=True)
     return n, dev_ms, wall_ms
+
+
+def check_kernel_b(canvas, xy):
+    """Both modes of kernel B against their plain versions: blur mode
+    bit-exact (moments within 0.5); describe mode's moments bit-equal
+    to blur mode's, its angle to angles_from_moments of them, its
+    descriptors to brief_pack_plain of the plain blur at that angle."""
+    import torch
+
+    from orb_slam_system_tpu_torch.ops import brief, patches
+    from orb_slam_system_tpu_torch.ops.brief import _angle_bins
+    from orb_slam_system_tpu_torch.ops.orientation import angles_from_moments
+    kb, km = patches.gather_blur_moments(canvas, xy, 21)
+    pb, pm = patches.gather_blur_moments_plain(canvas, xy, 21)
+    if not torch.equal(kb, pb):
+        fail(f"kernel B blur differs at {xy.shape[1]} slots: "
+             f"{int((kb != pb).sum())} values, max "
+             f"{float((kb - pb).abs().max())}")
+    mom_err = float((km - pm).abs().max())
+    if not mom_err <= 0.5:
+        fail(f"kernel B moments differ by {mom_err} (> 0.5)")
+    dm, da, dd = patches.gather_blur_describe(canvas, xy, 21)
+    if not torch.equal(dm, km):
+        fail(f"describe mode's moments differ from blur mode's in "
+             f"{int((dm != km).sum())} values")
+    ka = angles_from_moments(km)
+    if not torch.equal(da, ka):
+        fail(f"describe mode's angle differs from angles_from_moments in "
+             f"{int((da != ka).sum())} keypoints, max "
+             f"{float((da - ka).abs().max())}")
+    pd = brief.brief_pack_plain(pb, da)
+    if not torch.equal(dd, pd):
+        fail(f"describe mode's descriptors differ in "
+             f"{int((dd != pd).any(-1).sum())} keypoints")
+    flips = int((_angle_bins(da) != _angle_bins(angles_from_moments(pm)))
+                .sum())
+    print(f"kernel B at {xy.shape[1]} slots, canvas {tuple(canvas.shape)}: "
+          f"blur mode bit-exact, moments max err {mom_err:.3g} (angle-bin "
+          f"flips against the plain moments: {flips}); describe mode's "
+          f"moments, angle and descriptors bit-equal", flush=True)
+    return pb, pm, mom_err
 
 
 def canvas_floats_read(torch, patches, canvas, xy) -> int:
@@ -677,8 +752,12 @@ def loop_phase(torch, dev, kernels, loop_synthetic, loop_closing, sim3,
     for name in keys:
         f, a, kw = captured[name]
         fn = (lambda f=f, a=a, kw=kw: f(*a, **kw))
-        call_ms = cuda_ms(torch, fn, reps=3)
-        d_ms, n_k = stage_device_ms(torch, fn, reps=3, required=False)
+        # The essential graph (~3.6 s a call) and OptimizeSim3 (~1.1 s) are
+        # timed over one call each: every profiled call of theirs costs
+        # seconds of host time for 30,000-115,000 records.
+        reps = 1 if name in SLOW_SOLVES else 3
+        call_ms = cuda_ms(torch, fn, reps=reps)
+        d_ms, n_k = stage_device_ms(torch, fn, reps=reps, required=False)
         if name == "gba_chunk":
             label = (f"one global-BA chunk ({f.__name__}, "
                      f"{kw['n_iters']} LM iterations)")
@@ -1554,6 +1633,285 @@ def sequences_phase(torch, kernels, card) -> dict:
     return dict(native=nat, runs=runs, map=maps, decode=decode, wall_s=wall_s)
 
 
+def multiseq_phase(torch, kernels, check_kernel_b, card) -> dict:
+    """Phase 12 (see the module docstring); returns its numbers."""
+    import dataclasses
+
+    from orb_slam_system_tpu_torch.config import (ORBConfig, Sensor,
+                                                  TrackingState, load_settings)
+    from orb_slam_system_tpu_torch.drivers import multiseq_throughput
+    from orb_slam_system_tpu_torch.models import frame as frame_mod
+    from orb_slam_system_tpu_torch.ops import fast, patches
+    from orb_slam_system_tpu_torch.ops.extractor import ORBExtractor
+    from orb_slam_system_tpu_torch.parallel import multi_system, multiseq
+
+    t_phase = time.perf_counter()
+    OK = int(TrackingState.OK)
+    S = MULTISEQ_SEQS
+    root = os.path.dirname(os.path.abspath(__file__))
+    cfg = load_settings(os.path.join(root, "orb_slam_system_tpu_torch",
+                                     "settings", "euroc_mono.yaml"),
+                        Sensor.MONOCULAR)
+    if cfg.orb != ORBConfig(n_features=cfg.orb.n_features):
+        fail(f"euroc_mono.yaml's extractor is not run_full's: {cfg.orb}")
+    # The renderer is a pinhole: cam0's intrinsics without its distortion.
+    cam = dataclasses.replace(cfg.camera, k1=0.0, k2=0.0, p1=0.0, p2=0.0,
+                              k3=0.0)
+
+    # 12a: S full Systems through MultiSystem.track_batch; per round, the
+    # steady sequences and the batched extractions it made.
+    rounds = []
+    orig_track = multi_system.MultiSystem.track_batch
+    orig_extract = frame_mod.FrameBuilder.extract_packed_batch
+    n_batch = [0]
+    kept = {}
+
+    def track_batch(self, imgs, ts):
+        n0 = n_batch[0]
+        steady = sum(sy.tracker.state not in (TrackingState.NO_IMAGES_YET,
+                                              TrackingState.NOT_INITIALIZED)
+                     for sy in self.systems)
+        if steady == S and "imgs" not in kept:
+            kept["imgs"] = imgs
+        poses = orig_track(self, imgs, ts)
+        rounds.append((steady, n_batch[0] - n0))
+        return poses
+
+    def extract(self, imgs):
+        n_batch[0] += 1
+        return orig_extract(self, imgs)
+
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    multi_system.MultiSystem.track_batch = track_batch
+    frame_mod.FrameBuilder.extract_packed_batch = extract
+    t0 = time.perf_counter()
+    try:
+        with BuildCount(frame_mod) as builds, \
+                tempfile.TemporaryDirectory() as out_dir:
+            ms, ates, fps = multiseq_throughput.run_full(
+                S, MULTISEQ_FRAMES, out_dir, cfg.orb.n_features, verbose=True,
+                device="cuda", camera=cam)
+            traj_lines = [len(open(os.path.join(
+                out_dir, f"CameraTrajectory_seq{s}.txt")).readlines())
+                for s in range(S)]
+    finally:
+        multi_system.MultiSystem.track_batch = orig_track
+        frame_mod.FrameBuilder.extract_packed_batch = orig_extract
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    steady_rounds = sum(1 for st, _ in rounds if st)
+    seqs = []
+    for s, sy in enumerate(ms.systems):
+        recs = sy.telemetry.records
+        states = [r["state"] for r in recs]
+        init_at = states.index(OK) if OK in states else None
+        post = states[init_at + 1:] if init_at is not None else []
+        seqs.append(dict(
+            init_at=init_at, final=sy.get_tracking_state().name,
+            tracked_after_init=sum(st == OK for st in post) / max(len(post), 1),
+            keyframes=sy.arena.n_keyframes(), points=sy.arena.n_points(),
+            ate_cm=100 * ates[s], traj_lines=traj_lines[s],
+            track_ms_median=statistics.median(r["track_ms"] for r in recs),
+            mapping_ms_median=statistics.median(r["mapping_ms"] for r in recs),
+            kf_mapping_ms_median=statistics.median(
+                [r["mapping_ms"] for r in recs if r["mapping_ms"] > 1.0] or [0.0]),
+            loops=sy.loop_closer.n_loops_closed))
+    round_ms = statistics.median(ms.frame_ms[5:])
+    print(f"multiseq: {S} sequences x {MULTISEQ_FRAMES} frames at "
+          f"{cam.width}x{cam.height} ({cfg.orb.n_features} features, "
+          f"{cfg.orb.n_levels} levels) in {wall_s:.1f} s; aggregate "
+          f"{fps:.3f} fps (host clock over rounds 5-{MULTISEQ_FRAMES - 1}), "
+          f"round median {round_ms:.1f} ms; {steady_rounds} rounds with a "
+          f"steady sequence, {n_batch[0]} batched extractions, {builds.n} "
+          f"classic frame builds; launches {launches}; {card}", flush=True)
+    for s, q in enumerate(seqs):
+        print(f"multiseq sequence {s}: initialized at frame {q['init_at']}, "
+              f"{100 * q['tracked_after_init']:.1f}% tracked after it, ends "
+              f"{q['final']}, {q['keyframes']} keyframes, {q['points']} "
+              f"points, ATE (Sim3-aligned) {q['ate_cm']:.3f} cm, "
+              f"{q['traj_lines']} trajectory lines, loops {q['loops']}; "
+              f"track median {q['track_ms_median']:.3f} ms, mapping median "
+              f"{q['mapping_ms_median']:.3f} ms over all frames, "
+              f"{q['kf_mapping_ms_median']:.3f} ms over those that inserted "
+              f"keyframes (host clock)", flush=True)
+    for s, q in enumerate(seqs):
+        if q["final"] != "OK":
+            fail(f"multiseq sequence {s} ends {q['final']}, not OK")
+        if q["keyframes"] < 3 or q["points"] <= 100:
+            fail(f"multiseq sequence {s}: {q['keyframes']} keyframes, "
+                 f"{q['points']} points (need >= 3, > 100)")
+        if not q["ate_cm"] < 100 * MAX_MULTISEQ_ATE_M:
+            fail(f"multiseq sequence {s}: ATE {q['ate_cm']:.3f} cm")
+        if q["tracked_after_init"] < MIN_TRACKED_SHARE:
+            fail(f"multiseq sequence {s} tracked "
+                 f"{100 * q['tracked_after_init']:.1f}% after initialization")
+        if q["traj_lines"] <= 10:
+            fail(f"multiseq sequence {s}: {q['traj_lines']} trajectory lines")
+    if any(n != (1 if st else 0) for st, n in rounds):
+        fail(f"multiseq: batched extractions per round {rounds} (steady, "
+             f"calls): not one per round with a steady sequence")
+    check_build_launches("multiseq", launches, steady_rounds + builds.n)
+    if "imgs" not in kept:
+        fail("multiseq: no round had every sequence steady")
+
+    # One round's images: the batch-S pack against S single-image packs, the
+    # batched extraction's share of a round, kernels A and B at batch S.
+    fb = ms.shared_builder
+    imgs = kept["imgs"]
+    packed = fb.extract_packed_batch(imgs)
+    for s in range(S):
+        one = fb.extract_packed(imgs[s])
+        if not torch.equal(packed[s].view(torch.int32), one.view(torch.int32)):
+            fail(f"multiseq: batch-{S} pack row {s} differs from the single "
+                 f"pack in {int((packed[s].view(torch.int32) != one.view(torch.int32)).sum())} "
+                 f"words")
+    extract_ms = cuda_ms(torch, lambda: fb.extract_packed_batch(imgs), reps=10)
+    extract_dev, extract_kernels = stage_device_ms(
+        torch, lambda: fb.extract_packed_batch(imgs), reps=5)
+    print(f"multiseq: the batch-{S} pack equals {S} single-image packs bit for "
+          f"bit; the batched extraction {extract_ms:.3f} ms call (CUDA events), "
+          f"{extract_dev:.3f} ms device in {extract_kernels} kernels, "
+          f"{100 * extract_ms / round_ms:.2f}% of the round median "
+          f"{round_ms:.1f} ms; kernels A and B each once per round with a "
+          f"steady sequence ({steady_rounds}) plus once per classic build "
+          f"({builds.n}); {card}", flush=True)
+    img = fb._upload(imgs)
+    _, canvas, xy, levels = fb.extractor.detect(img)
+    for lvl, k_out in zip(levels, fast.fast_score_nms_levels(levels, 19)):
+        if not torch.equal(k_out, fast.nms3x3(fast.fast_score_map(lvl, 19))):
+            fail(f"kernel A differs from the plain version on the batch-{S} "
+                 f"level {tuple(lvl.shape)}")
+    run_a = lambda: fast.fast_score_nms_levels(levels, 19)
+    px = sum(l.numel() for l in levels)
+    a_shape = dict(
+        shape=[tuple(l.shape) for l in levels], launches_per_frame=1,
+        ms=cuda_ms(torch, run_a),
+        device_ms=device_ms(torch, run_a, "fast_score_nms_kernel"),
+        plain_ms=cuda_ms(torch, lambda: [fast.nms3x3(fast.fast_score_map(l, 19))
+                                         for l in levels]),
+        bound=bound_ms(8.0 * px, 330.0 * px), bytes_ms=bound_ms(8.0 * px, 0.0)[0],
+        minmax_ms=1e3 * 106.0 * px / (F32_OPS_PER_S / 4), pixels=px)
+    pb, _, _ = check_kernel_b(canvas, xy)
+    n_read = canvas_floats_read(torch, patches, canvas, xy)
+    run_s = lambda: patches.gather_blur_describe(canvas, xy, 21)
+    dev_s, n_s = stage_device_ms(torch, run_s)
+    b_shape = dict(
+        shape=[tuple(canvas.shape), tuple(xy.shape)], launches_per_frame=1,
+        ms=cuda_ms(torch, run_s), device_ms=dev_s, kernels=n_s,
+        plain_ms=cuda_ms(torch, lambda: patches.gather_blur_describe_plain(
+            canvas, xy, 21)),
+        bound=describe_bound(n_read, xy, pb.shape[-1]),
+        canvas_floats=canvas.numel(), canvas_floats_read=n_read)
+    if n_s != 1:
+        fail(f"the describe stage launched {n_s} kernels at batch {S}")
+    for label, r in ((f"kernel A (8 levels of {S} images, B = {S})", a_shape),
+                     (f"kernel B describe mode ({S} x {xy.shape[1]} slots)",
+                      b_shape)):
+        print(f"{label} at the multi-sequence shape {r['shape']}: device "
+              f"{r['device_ms']:.5f} ms, call {r['ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.4f} ms, bound {r['bound'][0]:.5f} ms "
+              f"({r['bound'][1]})"
+              + (f"; this design's: bytes {r['bytes_ms']:.5f} ms, min/max "
+                 f"issue {r['minmax_ms']:.5f} ms ({px} pixels)"
+                 if "bytes_ms" in r else
+                 f"; {n_read} of the canvas's {canvas.numel()} floats inside "
+                 f"the keypoints' windows") + f"; {card}", flush=True)
+    full = dict(
+        sequences=seqs, fps=fps, round_ms_median=round_ms, wall_s=wall_s,
+        steady_rounds=steady_rounds, batched_extractions=n_batch[0],
+        classic_builds=builds.n, launches=launches,
+        launches_per_round=launches["fast_score_nms"] / len(rounds),
+        extract_ms=extract_ms, extract_device_ms=extract_dev,
+        extract_kernels=extract_kernels, extract_share=extract_ms / round_ms)
+
+    # 12b: the batched front-end step over rendered frames, then its last
+    # call's inputs on the CPU; then a tracked state (the previous
+    # descriptors the frame's own, the points its keypoints back-projected
+    # 4 m out from a camera 2 cm off) on both.
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    fr = multiseq_throughput.run_frontend(FRONTEND_SEQS, FRONTEND_FRAMES,
+                                          device="cuda")
+    torch.cuda.synchronize()
+    fe_wall = time.perf_counter() - t0
+    fe_launches = dict(kernels.LAUNCHES)
+    check_build_launches("multiseq front end", fe_launches, FRONTEND_FRAMES + 1)
+    H, W = multiseq_throughput.FRONTEND_H, multiseq_throughput.FRONTEND_W
+    NF = multiseq_throughput.FRONTEND_FEATURES
+    NL = multiseq_throughput.FRONTEND_LEVELS
+    cpu_step, _ = multiseq.make_multiseq_step(H, W, NF, NL, FRONTEND_SEQS,
+                                              device="cpu")
+    step = fr["step"]
+
+    def agree(label, inputs, exact):
+        T, n_in, n_match = step(*inputs)
+        cT, c_in, c_match = cpu_step(*[x.cpu() if torch.is_tensor(x) else x
+                                      for x in inputs])
+        T = T.cpu()
+        err = float((T - cT).abs().max())
+        R = T[:, :3, :3]
+        orth = float((R @ R.transpose(1, 2) - torch.eye(3)).abs().max())
+        got = (int(n_match), int(n_in))
+        want = (int(c_match), int(c_in))
+        print(f"multiseq front end, {label}: card (matched, inliers) {got}, "
+              f"CPU {want}; max |T - T_cpu| {err:.3g}; rotations orthonormal "
+              f"within {orth:.3g}", flush=True)
+        close = (got == want if exact else
+                 all(abs(g - w) <= 0.01 * w for g, w in zip(got, want)))
+        if not close or not err <= 1e-3 or not orth <= 1e-3:
+            fail(f"multiseq front end, {label}: the card's step disagrees "
+                 f"with the CPU's ({got} against {want}, T {err:.3g}, "
+                 f"orthonormal {orth:.3g})")
+        return dict(card=got, cpu=want, max_T_err=err, orth_err=orth)
+
+    checks = {"last_frame": agree("the last frame's inputs", fr["inputs"],
+                                  True)}
+    imgs_fe, _, prev_valid, _, Tcw0 = fr["inputs"]
+    feats = ORBExtractor(ORBConfig(n_features=NF, n_levels=NL), H, W)(
+        torch.from_numpy(imgs_fe))
+    xy = feats.xy
+    f = 0.8 * W
+    pts = torch.cat([(xy - torch.tensor([W / 2, H / 2])) / f * 4.0,
+                     torch.full(xy.shape[:2] + (1,), 4.0)], -1)
+    pts = pts + torch.tensor([0.02, 0.0, 0.0])
+    tracked = (imgs_fe, feats.desc, feats.valid, pts, Tcw0.cpu())
+    checks["tracked"] = agree("a tracked state", tracked, False)
+    if checks["tracked"]["cpu"][0] < 100 * FRONTEND_SEQS:
+        fail(f"multiseq front end: the tracked state matched only "
+             f"{checks['tracked']['cpu'][0]}")
+    dev_args = [torch.as_tensor(x).cuda() for x in tracked]
+    walls = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        step(*dev_args)
+        torch.cuda.synchronize()
+        walls.append(1e3 * (time.perf_counter() - t1))
+    step_ms = cuda_ms(torch, lambda: step(*dev_args), reps=3)
+    step_dev, step_kernels = stage_device_ms(torch, lambda: step(*dev_args),
+                                             reps=3)
+    print(f"multiseq front end: {FRONTEND_SEQS} sequences at {W}x{H} ({NF} "
+          f"features, {NL} levels), {fr['frames']} frames in {fe_wall:.1f} s; "
+          f"aggregate {fr['fps']:.3f} fps ({fr['ms_per_frame']:.3f} ms a frame, "
+          f"host clock); one step on the tracked state: {step_kernels} "
+          f"kernels, {step_dev:.3f} ms device, call {step_ms:.3f} ms (CUDA "
+          f"events), wall median {statistics.median(walls):.3f} ms, device "
+          f"idle share {1.0 - step_dev / step_ms:.3f}; launches "
+          f"{fe_launches}; {card}", flush=True)
+    frontend = dict(fps=fr["fps"], ms_per_frame=fr["ms_per_frame"],
+                    frames=fr["frames"], wall_s=fe_wall, launches=fe_launches,
+                    checks=checks, step_kernels=step_kernels,
+                    step_device_ms=step_dev, step_call_ms=step_ms,
+                    step_wall_ms=statistics.median(walls))
+    wall = time.perf_counter() - t_phase
+    print(f"phase 12 in {wall:.1f} s", flush=True)
+    return dict(full=full, frontend=frontend, kernel_a=a_shape,
+                kernel_b=b_shape, wall_s=wall)
+
+
 def main() -> None:
     try:
         import torch
@@ -1664,40 +2022,6 @@ def main() -> None:
           f"{bytes_a:.4f} ms, min/max issue {minmax_a:.4f} ms; {card}",
           flush=True)
 
-    def check_kernel_b(canvas, xy):
-        """Both modes of kernel B against their plain versions: blur mode
-        bit-exact (moments within 0.5); describe mode's moments bit-equal
-        to blur mode's, its angle to angles_from_moments of them, its
-        descriptors to brief_pack_plain of the plain blur at that angle."""
-        kb, km = patches.gather_blur_moments(canvas, xy, 21)
-        pb, pm = patches.gather_blur_moments_plain(canvas, xy, 21)
-        if not torch.equal(kb, pb):
-            fail(f"kernel B blur differs at {xy.shape[1]} slots: "
-                 f"{int((kb != pb).sum())} values, max "
-                 f"{float((kb - pb).abs().max())}")
-        mom_err = float((km - pm).abs().max())
-        if not mom_err <= 0.5:
-            fail(f"kernel B moments differ by {mom_err} (> 0.5)")
-        dm, da, dd = patches.gather_blur_describe(canvas, xy, 21)
-        if not torch.equal(dm, km):
-            fail(f"describe mode's moments differ from blur mode's in "
-                 f"{int((dm != km).sum())} values")
-        ka = angles_from_moments(km)
-        if not torch.equal(da, ka):
-            fail(f"describe mode's angle differs from angles_from_moments in "
-                 f"{int((da != ka).sum())} keypoints, max "
-                 f"{float((da - ka).abs().max())}")
-        pd = brief.brief_pack_plain(pb, da)
-        if not torch.equal(dd, pd):
-            fail(f"describe mode's descriptors differ in "
-                 f"{int((dd != pd).any(-1).sum())} keypoints")
-        flips = int((_angle_bins(da) != _angle_bins(angles_from_moments(pm)))
-                    .sum())
-        print(f"kernel B at {xy.shape[1]} slots, canvas {tuple(canvas.shape)}: "
-              f"blur mode bit-exact, moments max err {mom_err:.3g} (angle-bin "
-              f"flips against the plain moments: {flips}); describe mode's "
-              f"moments, angle and descriptors bit-equal", flush=True)
-        return pb, pm, mom_err
 
     ex_init = FrameBuilder(cfg, dev, n_features=2 * cfg.orb.n_features).extractor
     check_kernel_b(*ex_init.detect(img)[1:3])
@@ -2038,13 +2362,18 @@ def main() -> None:
     # 11. Sequences and maps from disk; the counters count only each run.
     sequences = sequences_phase(torch, kernels, card)
     phases_done(11)
+    # 12. The multi-sequence mode; the counters count only each run.
+    multiseq = multiseq_phase(torch, kernels, check_kernel_b, card)
+    phases_done(12)
     for name, key in (("fast_score_nms", "kernel_a"),
                       ("gather_blur_moments", "kernel_b")):
-        r = stereo[key]
-        report[name]["at_stereo_shape"] = dict(
-            shape=r["shape"], launches_per_frame=r["launches_per_frame"],
-            ms=r["ms"], device_ms=r["device_ms"], plain_ms=r["plain_ms"],
-            bound_ms=r["bound"][0], bound_by=r["bound"][1])
+        for shape, ph in (("at_stereo_shape", stereo),
+                          ("at_multiseq_shape", multiseq)):
+            r = ph[key]
+            report[name][shape] = dict(
+                shape=r["shape"], launches_per_frame=r["launches_per_frame"],
+                ms=r["ms"], device_ms=r["device_ms"], plain_ms=r["plain_ms"],
+                bound_ms=r["bound"][0], bound_by=r["bound"][1])
 
     # Launches of each kernel on the path that runs it: the System for A and
     # B (its describe mode), the extractor's unfused route for C and D.
@@ -2063,7 +2392,9 @@ def main() -> None:
                 "realtime_stereo": realtime["stereo"]["launches"],
                 **{f"seq_{k}": v["launches"]
                    for k, v in sequences["runs"].items()},
-                "seq_map_localization": sequences["map"]["launches"]}
+                "seq_map_localization": sequences["map"]["launches"],
+                "multiseq": multiseq["full"]["launches"],
+                "multiseq_frontend": multiseq["frontend"]["launches"]}
     counter = dict(fast_score_nms="fast_score_nms",
                    gather_blur_moments="gather_blur_describe",
                    brief_pack="brief_pack", gather_patches="gather_patches")
@@ -2072,6 +2403,7 @@ def main() -> None:
     print(json.dumps({"stereo": stereo, "rgbd": rgbd}, default=str), flush=True)
     print(json.dumps({"realtime": realtime}, default=str), flush=True)
     print(json.dumps({"sequences": sequences}, default=str), flush=True)
+    print(json.dumps({"multiseq": multiseq}, default=str), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": r["source"],
@@ -2083,7 +2415,8 @@ def main() -> None:
          "library_device_ms": r.get("library_device_ms"),
          "launches_by_phase": {ph: c[counter[name]] for ph, c in by_phase.items()},
          **{k: r[k] for k in ("mode", "canvas_floats", "canvas_floats_read",
-                              "blur_mode", "replaced_chain") if k in r}}
+                              "blur_mode", "replaced_chain", "at_stereo_shape",
+                              "at_multiseq_shape") if k in r}}
         for name, r in report.items()]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {

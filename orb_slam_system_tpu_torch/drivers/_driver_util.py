@@ -25,12 +25,17 @@ def parse_args(doc: str, positional: Sequence[str], argv=None):
     for name in positional:
         ap.add_argument(name)
     ap.add_argument("--no-realtime", action="store_true")
-    ap.add_argument("--device", default="cuda")
+    add_device_arg(ap)
     ap.add_argument("--out-dir", default=".")
     args = ap.parse_args(argv)
     voc = args.path_to_vocabulary
     args.vocabulary = None if voc.lower() == "none" else voc
     return args
+
+
+def add_device_arg(ap: argparse.ArgumentParser) -> None:
+    """--device: cuda by default; cpu runs the plain PyTorch paths."""
+    ap.add_argument("--device", default="cuda")
 
 
 def make_fetcher(paths: List[str], raw16: bool = False) -> PrefetchLoader:

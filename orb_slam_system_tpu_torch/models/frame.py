@@ -12,7 +12,9 @@ f32[N, 18] (stereo, RGB-D) tensor there, in the JAX package's layout:
 
 A stereo frame runs ONE extraction over the left and right images stacked
 to batch 2 (kernels A and B launch once for the pair), then the stereo
-match on the pyramid levels that extraction built.
+match on the pyramid levels that extraction built. `extract_packed_batch`
+packs S monocular images from one extraction at batch S (the
+multi-sequence mode's shared front end, parallel/multi_system.py).
 
 The tracking programs consume that tensor directly; the host copy
 (`Frame.feats`, the map arena's FrameFeatures) is made lazily. A Frame also
@@ -135,34 +137,46 @@ class FrameBuilder:
         )
 
     def _upload(self, img) -> torch.Tensor:
-        """u8/f32 [H, W] (numpy or tensor) -> contiguous f32 on the device;
-        u8 input uploads as u8 and is cast there, any memory layout is
-        taken (the kernels need a contiguous image)."""
+        """u8/f32 [H, W] or [S, H, W] (numpy or tensor) -> contiguous f32 on
+        the device; u8 input uploads as u8 (one copy for all S images) and is
+        cast there, any memory layout is taken (the kernels need a
+        contiguous image)."""
         return torch.as_tensor(img).to(self.device).to(torch.float32).contiguous()
 
-    def _undistort(self, fs) -> torch.Tensor:
-        """Undistorted xy f32[N, 2] of a FeatureSet's batch entry 0."""
+    def _undistort(self, xy: torch.Tensor) -> torch.Tensor:
+        """Undistorted keypoints f32[B, N, 2] of xy f32[B, N, 2]."""
         k = self.cfg.camera
-        return cam_ops.undistort_points(fs.xy[:1], k.fx, k.fy, k.cx, k.cy,
-                                        k.k1, k.k2, k.p1, k.p2, k.k3)[0]
+        return cam_ops.undistort_points(xy, k.fx, k.fy, k.cx, k.cy,
+                                        k.k1, k.k2, k.p1, k.p2, k.k3)
 
-    def _pack(self, fs, extra=(), und=None) -> torch.Tensor:
-        """Batch entry 0 of a FeatureSet (und: its undistorted xy, computed
-        when not given) plus the extra per-slot columns -> packed
-        f32[N, 16 + len(extra)]."""
-        und = self._undistort(fs) if und is None else und
+    def _pack(self, fs, n_rows: int = 1, extra=(), und=None) -> torch.Tensor:
+        """The first n_rows batch entries of a FeatureSet (und: their
+        undistorted xy, computed when not given) plus the extra per-slot
+        columns f32[n_rows, N] -> packed f32[n_rows, N, 16 + len(extra)]."""
+        r = slice(0, n_rows)
+        und = self._undistort(fs.xy[r]) if und is None else und
         return torch.cat([
-            fs.xy[0], und,
-            fs.response[0][:, None], fs.angle[0][:, None],
-            fs.octave[0].to(torch.float32)[:, None],
-            fs.valid[0].to(torch.float32)[:, None],
-            fs.desc[0].view(torch.float32),
-            *[c[:, None] for c in extra],
-        ], dim=1)
+            fs.xy[r], und,
+            fs.response[r, :, None], fs.angle[r, :, None],
+            fs.octave[r].to(torch.float32)[..., None],
+            fs.valid[r].to(torch.float32)[..., None],
+            fs.desc[r].view(torch.float32),
+            *[c[..., None] for c in extra],
+        ], dim=2)
 
     def extract_packed(self, img) -> torch.Tensor:
         """img: u8/f32 [H, W] -> packed f32[N, 16] on the device."""
-        return self._pack(self.extractor(self._upload(img)[None]))
+        return self._pack(self.extractor(self._upload(img)[None]))[0]
+
+    def extract_packed_batch(self, imgs) -> torch.Tensor:
+        """imgs: u8/f32 [S, H, W] (numpy or tensor) -> packed f32[S, N, 16]
+        on the device (the JAX package's FrameBuilder._extract_packed_batch):
+        one upload, one extraction at batch S (kernel A and kernel B's
+        describe mode launch once for all S images), one undistortion and
+        pack. Row s equals extract_packed(imgs[s]): the kernels and every
+        op after them work per image."""
+        fs = self.extractor(self._upload(imgs))
+        return self._pack(fs, fs.xy.shape[0])
 
     def extract_packed_stereo(self, left, right) -> torch.Tensor:
         """A rectified pair -> packed f32[N, 18] of the left image: one
@@ -176,20 +190,20 @@ class FrameBuilder:
             fs.xy[0], fs.octave[0], fs.desc[0], fs.valid[0],
             fs.xy[1], fs.octave[1], fs.desc[1], fs.valid[1],
             self._scales_dev, k.bf, 0.0, k.fx)
-        return self._pack(fs, (u_right, depth))
+        return self._pack(fs, 1, (u_right[None], depth[None]))[0]
 
     def extract_packed_rgbd(self, img, depth_map) -> torch.Tensor:
         """An image and its raw depth map (scaled by 1 / DepthMapFactor,
         reference Tracking.cc:90-96) -> packed f32[N, 18]."""
         df = self.cfg.depth_map_factor
         fs = self.extractor(self._upload(img)[None])
-        und = self._undistort(fs)
+        und = self._undistort(fs.xy[:1])
         if not torch.is_tensor(depth_map):
             depth_map = np.asarray(depth_map, np.float32)   # e.g. TUM's u16
         u_right, depth = rgbd_pseudo_stereo(
-            self._upload(depth_map), fs.xy[0], und, fs.valid[0],
+            self._upload(depth_map), fs.xy[0], und[0], fs.valid[0],
             self.cfg.camera.bf, 1.0 / df if abs(df) > 1e-5 else 1.0)
-        return self._pack(fs, (u_right, depth), und)
+        return self._pack(fs, 1, (u_right[None], depth[None]), und)[0]
 
     def build(self, img, timestamp: float) -> Frame:
         """img: f32/u8 [H, W] grayscale -> Frame whose packed tensor stays

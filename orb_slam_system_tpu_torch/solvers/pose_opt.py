@@ -11,6 +11,12 @@ right-column residual u_r - (u - bf/z).
 The loop keeps the LM state (xi, lambda, the accept decision) as tensors:
 nothing inside it reads a value back to the host, so on the card the 40
 iterations enqueue without a single synchronization.
+
+`pose_optimization_batch` solves S independent poses with one set of
+launches: torch.func.vmap of `pose_optimization` (the JAX package's
+jax.vmap in parallel/multiseq.py:99-103). The JAX function's `axis_name`
+psum reduces the normal equations over query-row shards of one pose; on
+one card there is one shard, so it has no counterpart here.
 """
 
 from __future__ import annotations
@@ -18,6 +24,7 @@ from __future__ import annotations
 import torch
 
 from orb_slam_system_tpu_torch.utils import lie
+from orb_slam_system_tpu_torch.utils.precision import set_f32_policy
 
 CHI2_MONO = 5.991            # reference src/Optimizer.cc:330
 CHI2_STEREO = 7.815          # reference chi2Stereo
@@ -128,3 +135,17 @@ def pose_optimization(Tcw0, Xw, obs, inv_sigma2, valid, fx, fy, cx, cy,
                            torch.full_like(chi2, CHI2_MONO))
         inlier = valid & (z > 0) & (chi2 <= gate)
     return T0, inlier, inlier.sum()
+
+
+def pose_optimization_batch(Tcw0, Xw, obs, inv_sigma2, valid, fx, fy, cx, cy):
+    """pose_optimization of S monocular problems over a leading sequence
+    axis: Tcw0 f32[S,4,4], Xw f32[S,N,3], obs f32[S,N,2], inv_sigma2
+    f32[S,N], valid bool[S,N] -> (Tcw f32[S,4,4], inlier bool[S,N],
+    n_inliers i64[S]). Every op of the LM has a batching rule, so the S
+    solves share one set of launches; row s equals pose_optimization on row
+    s up to the reduction order of the batched products."""
+    set_f32_policy()
+
+    def one(T0, X, uv, w, ok):
+        return pose_optimization(T0, X, uv, w, ok, fx, fy, cx, cy)
+    return torch.func.vmap(one)(Tcw0, Xw, obs, inv_sigma2, valid)

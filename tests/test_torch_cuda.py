@@ -2,7 +2,8 @@
 and the relocalization, loop-closing, stereo and chain-step torch code on
 the card against the CPU (the chain step under CUDA's sync debug mode),
 with one loop closed, one stereo run and one async + pipelined monocular
-run tracked on the card.
+run tracked on the card; the multi-sequence mode's batch-5 pack and
+batched front-end step on the card.
 
 Marked `cuda`: they skip without a GPU (a CUDA kernel has no CPU mode).
 Run them on a machine with an NVIDIA GPU and nvcc (--noconftest: the
@@ -688,3 +689,63 @@ def test_async_pipelined_system_on_the_card_320x240(dev):
     assert slam.local_mapper._thread is None
     assert slam.local_mapper.worker_errors == 0
     assert slam.tracker.epoch_violations == 0
+
+
+def test_batched_pack_on_the_card_equals_single_packs(dev):
+    """FrameBuilder.extract_packed_batch at batch 5 on the card (752x480,
+    1000 features: the multi-sequence phase's shape) equals five
+    single-image packs bit for bit, in one launch of kernel A and one of
+    kernel B's describe mode."""
+    from orb_slam_system_tpu_torch.config import ORBConfig, SlamConfig
+    from orb_slam_system_tpu_torch.drivers import multiseq_throughput
+    from orb_slam_system_tpu_torch.models.frame import FrameBuilder
+    from orb_slam_system_tpu_torch.utils import kernels
+    cam = multiseq_throughput.default_camera(752, 480)
+    renderers, trajs = multiseq_throughput.sequence_scenes(5, 2, cam)
+    imgs = np.stack([r.render(t[1]) for r, t in zip(renderers, trajs)])
+    fb = FrameBuilder(SlamConfig(camera=cam, orb=ORBConfig(n_features=1000)),
+                      dev)
+    kernels.reset_launch_counts()
+    packed = fb.extract_packed_batch(imgs)
+    assert kernels.LAUNCHES["fast_score_nms"] == 1
+    assert kernels.LAUNCHES["gather_blur_describe"] == 1
+    assert packed.shape == (5, 1024, 16)
+    for s in range(5):
+        one = fb.extract_packed(imgs[s])
+        assert torch.equal(packed[s].view(torch.int32), one.view(torch.int32))
+
+
+def test_frontend_step_on_the_card_matches_cpu(dev):
+    """parallel/multiseq's step on the card against the same step on the
+    CPU: on its example arguments (totals equal, poses within 1e-3), and on
+    a tracked state of rendered frames (the previous descriptors the
+    frame's own, the points back-projected 4 m out from a camera 2 cm off;
+    totals within 1%, poses within 1e-3, rotations orthonormal)."""
+    from orb_slam_system_tpu_torch.config import ORBConfig
+    from orb_slam_system_tpu_torch.drivers import multiseq_throughput
+    from orb_slam_system_tpu_torch.ops.extractor import ORBExtractor
+    from orb_slam_system_tpu_torch.parallel.multiseq import make_multiseq_step
+    H, W, S = 240, 320, 4
+    step, args = make_multiseq_step(H, W, 512, 4, S, device=dev)
+    cpu_step, cargs = make_multiseq_step(H, W, 512, 4, S, device="cpu")
+    T, n_in, n_match = step(*args)
+    cT, c_in, c_match = cpu_step(*cargs)
+    assert (int(n_match), int(n_in)) == (int(c_match), int(c_in))
+    assert float((T.cpu() - cT).abs().max()) <= 1e-3
+    cam = multiseq_throughput.default_camera(W, H)
+    renderers, trajs = multiseq_throughput.sequence_scenes(S, 2, cam)
+    imgs = np.stack([r.render(t[1]) for r, t in zip(renderers, trajs)])
+    feats = ORBExtractor(ORBConfig(n_features=512, n_levels=4), H, W)(
+        torch.from_numpy(imgs.astype(np.float32)))
+    pts = torch.cat([(feats.xy - torch.tensor([W / 2, H / 2])) / (0.8 * W) * 4,
+                     torch.full(feats.xy.shape[:2] + (1,), 4.0)], -1)
+    state = (imgs, feats.desc, feats.valid, pts + torch.tensor([0.02, 0, 0]),
+             torch.eye(4).expand(S, 4, 4).contiguous())
+    T, n_in, n_match = step(*state)
+    cT, c_in, c_match = cpu_step(*state)
+    assert int(c_match) > 1000 and int(c_in) > 1000
+    assert abs(int(n_match) - int(c_match)) <= 0.01 * int(c_match)
+    assert abs(int(n_in) - int(c_in)) <= 0.01 * int(c_in)
+    assert float((T.cpu() - cT).abs().max()) <= 1e-3
+    R = T[:, :3, :3].cpu()
+    assert float((R @ R.transpose(1, 2) - torch.eye(3)).abs().max()) <= 1e-3

@@ -27,6 +27,18 @@ from orb_slam_system_tpu_torch.ops import patches
 from orb_slam_system_tpu_torch.ops.brief import _angle_bins
 from orb_slam_system_tpu_torch.ops.orientation import _umax_table, moment_weights
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread for this module (as tests/test_torch_realtime.py):
+    the suite runs several workers on a shared machine, where a thread per
+    core in every worker spins against the others. Restored afterwards."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 KERNEL_B = (Path(__file__).resolve().parent.parent / "orb_slam_system_tpu_torch"
             / "csrc" / "gather_blur_moments.cu")
 

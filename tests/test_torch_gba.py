@@ -15,6 +15,7 @@ refused at the frame's end (counted, then raised).
 
 import numpy as np
 import pytest
+import torch
 
 from orb_slam_system_tpu_torch.config import (CameraConfig, ORBConfig, Sensor,
                                               SlamConfig, TrackingState)
@@ -25,6 +26,18 @@ from orb_slam_system_tpu_torch.models.local_mapping import LocalMapper
 from orb_slam_system_tpu_torch.models.loop_closing import LoopCloser
 from orb_slam_system_tpu_torch.models.place_recognition import PlaceRecognition
 from orb_slam_system_tpu_torch.models.system import System
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread for this module (as tests/test_torch_realtime.py):
+    the suite runs several workers on a shared machine, where a thread per
+    core in every worker spins against the others. Restored afterwards."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 FX = FY = 300.0
 CX, CY = 160.0, 120.0

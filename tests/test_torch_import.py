@@ -22,7 +22,8 @@ for new in ("vocab.vocabulary", "mapping.keyframe_db",
             "drivers._driver_util", "drivers.mono_tum", "drivers.rgbd_tum",
             "drivers.mono_kitti", "drivers.stereo_kitti", "drivers.mono_euroc",
             "drivers.stereo_euroc", "drivers.evaluate_ate",
-            "drivers.run_dataset"):
+            "drivers.run_dataset", "parallel", "parallel.multi_system",
+            "parallel.multiseq", "drivers.multiseq_throughput"):
     assert pkg.__name__ + "." + new in names, new
 for n in names:
     importlib.import_module(n)
@@ -85,8 +86,9 @@ def test_port_never_imports_jax():
     place-recognition, relocalization, loop-closing and dataset modules
     named), chip_smoke.py and kernel_times.py import without jax, the JAX
     package, tools/ or examples/, and without building the native decoder;
-    the System has its realtime and map entry points."""
-    assert int(_run(_IMPORT_ALL).split()[-1]) >= 63
+    the System has its realtime and map entry points. The multi-sequence
+    modules (parallel/, drivers/multiseq_throughput) are among them."""
+    assert int(_run(_IMPORT_ALL).split()[-1]) >= 69
 
 
 def test_entry_points_default_to_the_card():
@@ -101,15 +103,31 @@ def test_entry_points_default_to_the_card():
     from orb_slam_system_tpu_torch.models.system import System
     from orb_slam_system_tpu_torch.models.track_device import TrackPrograms
     from orb_slam_system_tpu_torch.models.tracking import Tracker
-    from orb_slam_system_tpu_torch.drivers import loop_synthetic, mono_synthetic
+    from orb_slam_system_tpu_torch.drivers import (loop_synthetic,
+                                                   mono_synthetic,
+                                                   multiseq_throughput)
+    from orb_slam_system_tpu_torch.parallel.multi_system import MultiSystem
+    from orb_slam_system_tpu_torch.parallel.multiseq import make_multiseq_step
     for entry in (FrameBuilder, TrackPrograms, System, Tracker, LocalMapper,
                   PlaceRecognition, LoopCloser, mono_synthetic.run,
-                  loop_synthetic.run):
+                  loop_synthetic.run, MultiSystem, make_multiseq_step,
+                  multiseq_throughput.run_full,
+                  multiseq_throughput.run_frontend):
         assert inspect.signature(entry).parameters["device"].default == "cuda", entry
     from orb_slam_system_tpu_torch.drivers import _driver_util, run_dataset
     assert run_dataset.parse_args(["seq"]).device == "cuda"
     assert _driver_util.parse_args("", ["path_to_vocabulary"],
                                    ["none"]).device == "cuda"
+    # multiseq_throughput.main parses --device with the dataset drivers'
+    # helper; without it the entry point gets "cuda".
+    seen = {}
+    orig = multiseq_throughput.run_full
+    multiseq_throughput.run_full = lambda *a, **kw: seen.update(kw)
+    try:
+        multiseq_throughput.main(["2", "3", "out"])
+    finally:
+        multiseq_throughput.run_full = orig
+    assert seen["device"] == "cuda"
 
 
 def test_wrappers_take_plain_path_on_cpu():

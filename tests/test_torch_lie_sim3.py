@@ -29,6 +29,18 @@ from orb_slam_system_tpu_torch.solvers import local_ba, pose_graph, sim3
 from orb_slam_system_tpu_torch.utils import lie
 from orb_slam_system_tpu_torch.utils.interop import ba_problem_from_numpy
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread for this module (as tests/test_torch_realtime.py):
+    the suite runs several workers on a shared machine, where a thread per
+    core in every worker spins against the others. Restored afterwards."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 FX, FY, CX, CY = 500.0, 500.0, 320.0, 240.0
 
 

@@ -15,6 +15,8 @@
 
 import jax.numpy as jnp
 import numpy as np
+import pytest
+import torch
 
 import orb_slam_system_tpu.config as jconfig
 import orb_slam_system_tpu.mapping.arena as jarena
@@ -31,6 +33,18 @@ import orb_slam_system_tpu_torch.models.loop_closing as lc_mod
 import orb_slam_system_tpu_torch.models.place_recognition as pr_mod
 from orb_slam_system_tpu_torch.ops import matching
 from orb_slam_system_tpu_torch.utils.interop import to_device
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread for this module (as tests/test_torch_realtime.py):
+    the suite runs several workers on a shared machine, where a thread per
+    core in every worker spins against the others. Restored afterwards."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 FX = FY = 300.0
 CX, CY = 160.0, 120.0

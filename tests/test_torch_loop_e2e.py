@@ -17,6 +17,19 @@ import sys
 
 import numpy as np
 import pytest
+import torch
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread for this module (as tests/test_torch_realtime.py):
+    the suite runs several workers on a shared machine, where a thread per
+    core in every worker spins against the others. Restored afterwards."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 

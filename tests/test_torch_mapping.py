@@ -39,6 +39,18 @@ from orb_slam_system_tpu_torch.solvers.triangulate import triangulate_dlt
 from orb_slam_system_tpu_torch.utils.interop import (ba_problem_from_numpy,
                                                      init_inputs_from_numpy)
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread for this module (as tests/test_torch_realtime.py):
+    the suite runs several workers on a shared machine, where a thread per
+    core in every worker spins against the others. Restored afterwards."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 N_FRAMES = 12
 
 

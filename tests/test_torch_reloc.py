@@ -20,6 +20,7 @@ to None on the instance (the port has no loop closing). Then, on both:
 
 import numpy as np
 import pytest
+import torch
 
 from orb_slam_system_tpu.config import (CameraConfig as JCameraConfig,
                                         ORBConfig as JORBConfig,
@@ -32,6 +33,18 @@ from orb_slam_system_tpu_torch.drivers.mono_synthetic import (make_config,
                                                               make_renderer,
                                                               render_sequence)
 from orb_slam_system_tpu_torch.models.system import System
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread for this module (as tests/test_torch_realtime.py):
+    the suite runs several workers on a shared machine, where a thread per
+    core in every worker spins against the others. Restored afterwards."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 N_FRAMES, N_FEATURES, MID = 25, 400, 10
 

@@ -25,6 +25,18 @@ from orb_slam_system_tpu_torch.models.tracking import (fused_track_step,
                                                        seed_map_from_depth)
 from orb_slam_system_tpu_torch.utils.interop import packed_frame_from_numpy
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread for this module (as tests/test_torch_realtime.py):
+    the suite runs several workers on a shared machine, where a thread per
+    core in every worker spins against the others. Restored afterwards."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 W, H, N_FEATURES, LOCAL_SLOTS = 320, 240, 500, 512
 CAM = dict(fx=260.0, fy=260.0, cx=W / 2, cy=H / 2, fps=30.0, width=W, height=H)
 

@@ -13,6 +13,7 @@ map point counts; their ATEs differ by < 1 cm.
 
 import numpy as np
 import pytest
+import torch
 
 from orb_slam_system_tpu.config import (CameraConfig as JCameraConfig,
                                         ORBConfig as JORBConfig,
@@ -24,6 +25,18 @@ from orb_slam_system_tpu_torch.dataio import trajectory as traj_io
 from orb_slam_system_tpu_torch.drivers.mono_synthetic import (make_config,
                                                               render_sequence,
                                                               run)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread for this module (as tests/test_torch_realtime.py):
+    the suite runs several workers on a shared machine, where a thread per
+    core in every worker spins against the others. Restored afterwards."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 N_FRAMES, N_FEATURES = 25, 400
 

@@ -13,10 +13,23 @@ within max(0.5 cm, 25%) of its ATE.
 
 import numpy as np
 import pytest
+import torch
 
 from orb_slam_system_tpu_torch.config import Sensor, TrackingState
 from orb_slam_system_tpu_torch.dataio import trajectory as traj_io
 from orb_slam_system_tpu_torch.drivers.rgbd_synthetic import make_config, run
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread for this module (as tests/test_torch_realtime.py):
+    the suite runs several workers on a shared machine, where a thread per
+    core in every worker spins against the others. Restored afterwards."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 N_FRAMES = 20
 

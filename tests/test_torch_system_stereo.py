@@ -20,10 +20,23 @@ import sys
 
 import numpy as np
 import pytest
+import torch
 
 from orb_slam_system_tpu_torch.config import TrackingState
 from orb_slam_system_tpu_torch.dataio import trajectory as traj_io
 from orb_slam_system_tpu_torch.drivers.stereo_synthetic import run
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread for this module (as tests/test_torch_realtime.py):
+    the suite runs several workers on a shared machine, where a thread per
+    core in every worker spins against the others. Restored afterwards."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 

@@ -29,6 +29,18 @@ from orb_slam_system_tpu_torch.mapping.keyframe_db import KeyFrameDatabase
 from orb_slam_system_tpu_torch.ops import matching
 from orb_slam_system_tpu_torch.vocab.vocabulary import Vocabulary
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread for this module (as tests/test_torch_realtime.py):
+    the suite runs several workers on a shared machine, where a thread per
+    core in every worker spins against the others. Restored afterwards."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 TABLES = ("node_desc", "node_parent", "node_children", "node_is_leaf",
           "node_weight", "word_of_node")
 

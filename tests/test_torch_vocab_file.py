@@ -15,6 +15,7 @@ which the JAX package's round-5 zero-node-id fault showed.
 
 import numpy as np
 import pytest
+import torch
 
 from orb_slam_system_tpu.config import (CameraConfig as JCameraConfig,
                                         ORBConfig as JORBConfig,
@@ -29,6 +30,18 @@ from orb_slam_system_tpu_torch.models.frame import FrameBuilder
 from orb_slam_system_tpu_torch.models.system import System
 from orb_slam_system_tpu_torch.vocab.vocabulary import Vocabulary
 from test_torch_vocab import write_orbvoc
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread for this module (as tests/test_torch_realtime.py):
+    the suite runs several workers on a shared machine, where a thread per
+    core in every worker spins against the others. Restored afterwards."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 N_FRAMES, N_FEATURES = 15, 400
 
