@@ -62,13 +62,12 @@ Phases, each of which fails the run (exit code != 0) when it fails:
      mode never), and no pose-epoch violation. Print the loop's keyframe,
      its matched keyframe and the Sim3 scale, whether the global BA landed
      during the run or at shutdown, the loop closer's funnel, the wall ms of
-     each loop and mapping stage, and the device kernels and ms of
-     sim3_ransac_batch, optimize_sim3, optimize_essential_graph and one
-     global-BA chunk, each re-run on the inputs the run gave it (the two
-     slow solves, optimize_sim3 and the essential graph, over one call
-     each, the others over three), and the
-     global-BA solver the run did not take (dense Schur or PCG) on the
-     same chunk;
+     each loop and mapping stage, the device kernels and ms of
+     sim3_ransac_batch and one global-BA chunk re-run over three calls on
+     the inputs the run gave them, the call ms of optimize_sim3 and
+     optimize_essential_graph over one call each (their profiled re-runs
+     are phase 13's, on the long map), and the global-BA solver the run
+     did not take (dense Schur or PCG) on the same chunk;
   8. stereo at KITTI width: the KITTI 00-02 settings (1241x376, bf 386.1448,
      2000 features in 2048 slots) loaded for Sensor.STEREO,
      System.track_stereo over 30 rectified pairs of phase 5's orbit at
@@ -165,6 +164,37 @@ Phases, each of which fails the run (exit code != 0) when it fails:
         1e-3, rotations orthonormal within 1e-3), then a tracked state the
         same way (totals within 1%); print the step's kernels, device, call
         and wall ms and the aggregate front-end fps.
+ 13. the long run, the viewer and the AR overlay, the counters read around
+     each run:
+     a. the endurance clover (drivers/endurance_synthetic.run; the
+        candidate of BASELINE.json config 2, KITTI 00's long trajectory
+        with loop closure): its first circle, 250 frames at the JAX gate's
+        ~4.5 cm a frame, back to the junction, 320x240, 400 features,
+        System.track_monocular with the synchronous mapper and the global
+        BA on its own thread.
+        Bars: >= 90% tracked, >= 1 loop closed, a global BA solved through
+        bundle_adjust_cg past GBA_DENSE_MAX_CAMS (48) keyframes and
+        applied (spies on local_ba's two solvers and on GBARunner count
+        each chunk's solver and keyframes), a peak of >= 49 keyframes, ATE
+        < 12 cm, no pose-epoch violation, the last third's host-ms median
+        within 2.5x the first third's, kernel A and B's describe mode once
+        per frame build (C and B's blur mode never). Print C for every
+        solve, the mapper's stage ms over its first and last 20 calls, the
+        keyframes and points at the end and at the peak, the peak device
+        memory (torch.cuda.max_memory_allocated); then, on the run's
+        inputs, the kernels, device ms and call ms of one PCG global-BA
+        chunk past 48 keyframes and of the dense Schur solve on the same
+        chunk (the cut-over), and of the last essential graph and
+        OptimizeSim3, each profiled over one call; and the saved map's
+        bytes per keyframe;
+     b. on 13a's System: annotate_frame and status_text on the last frame
+        (a box drawn, the state named), export_map_ply of the long map
+        (ms, bytes, the vertex count), a LiveViewer on a free localhost
+        port: one update(), its map JSON parsed with the map's keyframe
+        count, an annotated frame served, shut down; then ARDemo.process
+        on a fresh System over the first 30 frames of phase 5's cached
+        640x480 orbit: a plane fitted, cube pixels drawn on a tracked
+        frame, A and B once per frame build.
 The synthetic frames are rendered on the host, and later phases render poses
 of earlier ones again: memoize_renders serves a repeat from a cache (the
 same image), and the script prints its clock after each phase. The
@@ -202,7 +232,8 @@ MAX_ATE_M = 0.03            # tests/test_e2e_mono.py bar
 LOOP_FRAMES = 90            # tests/test_e2e_loop.py's short circle
 MIN_LOOP_TRACKED = 80       # ... and its bars
 MAX_LOOP_ATE_M = 0.10
-SLOW_SOLVES = ("optimize_sim3", "optimize_essential_graph")  # timed over 1 call
+# Timed over one call, profiled in phase 13 on the long map's inputs.
+SLOW_SOLVES = ("optimize_sim3", "optimize_essential_graph")
 # Phases 8 and 9 ran 60 frames each until phase 10 came; 30 keep the
 # script's time (the bars are shares of the frames).
 STEREO_FRAMES = 30          # phase 8: KITTI-width stereo pairs
@@ -227,6 +258,17 @@ MULTISEQ_FRAMES = 30        # ... frames per sequence
 MAX_MULTISEQ_ATE_M = 0.05   # tests/test_multiseq_system.py's bar
 FRONTEND_SEQS = 8           # phase 12b: the JAX example's --frontend shape
 FRONTEND_FRAMES = 20
+# Phase 13a: the endurance clover's first circle, 250 frames at the JAX
+# gate's ~4.5 cm a frame (the first 250 frames of its 500-frame, 2-leaf
+# run); the loop at the junction closes after ~63 keyframes. The second
+# circle, with its closure at ~114 keyframes, would take the script past
+# 1,000 s: it runs in tests/test_torch_endurance.py.
+LONG_FRAMES = 250
+LONG_LEAVES = 1
+LONG_FEATURES = 400
+MAX_LONG_ATE_M = 0.12       # tests/test_endurance.py's bars
+MAX_THIRDS_RATIO = 2.5
+AR_FRAMES = 30              # phase 13b: ARDemo over phase 5's first frames
 # EuRoC cam0's intrinsics (examples/settings/euroc_mono.yaml) without its
 # distortion: the renderer is a pinhole.
 EUROC_W, EUROC_H = 752, 480
@@ -753,11 +795,13 @@ def loop_phase(torch, dev, kernels, loop_synthetic, loop_closing, sim3,
         f, a, kw = captured[name]
         fn = (lambda f=f, a=a, kw=kw: f(*a, **kw))
         # The essential graph (~3.6 s a call) and OptimizeSim3 (~1.1 s) are
-        # timed over one call each: every profiled call of theirs costs
-        # seconds of host time for 30,000-115,000 records.
+        # timed over one call each and profiled in phase 13 on the long
+        # map's inputs instead: every profiled call of theirs costs seconds
+        # of host time for 30,000-115,000 records.
         reps = 1 if name in SLOW_SOLVES else 3
         call_ms = cuda_ms(torch, fn, reps=reps)
-        d_ms, n_k = stage_device_ms(torch, fn, reps=reps, required=False)
+        d_ms, n_k = ((None, None) if name in SLOW_SOLVES else
+                     stage_device_ms(torch, fn, reps=reps, required=False))
         if name == "gba_chunk":
             label = (f"one global-BA chunk ({f.__name__}, "
                      f"{kw['n_iters']} LM iterations)")
@@ -769,6 +813,11 @@ def loop_phase(torch, dev, kernels, loop_synthetic, loop_closing, sim3,
                       if torch.is_tensor(x) and x.dim() >= 2][:2]
         solves[name] = dict(device_ms=d_ms, kernels=n_k, call_ms=call_ms,
                             shapes=shapes, solver=f.__name__)
+        if name in SLOW_SOLVES:
+            print(f"{label} on the run's inputs {shapes}: call {call_ms:.3f} "
+                  f"ms (CUDA events, one call; profiled in phase 13); {card}",
+                  flush=True)
+            continue
         idle = "not measured" if d_ms is None else f"{1.0 - d_ms / call_ms:.3f}"
         print(f"{label} on the run's inputs {shapes}: {n_k} device kernels, "
               f"{ms_text(d_ms)} summed device time (profiler), call "
@@ -1912,6 +1961,310 @@ def multiseq_phase(torch, kernels, check_kernel_b, card) -> dict:
                 kernel_b=b_shape, wall_s=wall)
 
 
+def long_run_phase(torch, kernels, card) -> tuple:
+    """Phase 13a (see the module docstring); returns (its numbers, the
+    System). Spies set in this function on local_ba.bundle_adjust /
+    bundle_adjust_cg (each global-BA chunk: solver and keyframes),
+    GBARunner._solve and take_result (each solve, each applied result),
+    pose_graph.optimize_sim3 and optimize_essential_graph (the inputs of
+    their last call); the package has no switch for any of them."""
+    from orb_slam_system_tpu_torch.drivers import endurance_synthetic
+    from orb_slam_system_tpu_torch.models import frame as frame_mod
+    from orb_slam_system_tpu_torch.models import loop_closing
+    from orb_slam_system_tpu_torch.solvers import local_ba, pose_graph
+    gba = loop_closing.GBARunner
+    cut = loop_closing.GBA_DENSE_MAX_CAMS
+    chunks, solves, applied, captured = [], [], [], {}
+    spied = [(local_ba, "bundle_adjust"), (local_ba, "bundle_adjust_cg"),
+             (pose_graph, "optimize_sim3"),
+             (pose_graph, "optimize_essential_graph"),
+             (gba, "_solve"), (gba, "take_result")]
+    originals = {name: getattr(mod, name) for mod, name in spied}
+
+    def chunk_spy(name):
+        def call(*a, **kw):
+            # A global-BA chunk runs CHUNK_ITERS iterations (local BA 5 and
+            # 10, the initializer's 20).
+            if kw.get("n_iters") == gba.CHUNK_ITERS:
+                C = int(a[0].Tcw.shape[0])
+                chunks.append((name, C))
+                if name == "bundle_adjust_cg" and C > cut:
+                    captured.setdefault("pcg_chunk", (a, kw))
+            return originals[name](*a, **kw)
+        return call
+
+    def last_call(name):
+        def call(*a, **kw):
+            captured[name] = (a, kw)
+            return originals[name](*a, **kw)
+        return call
+
+    def solve(runner, snapshot, cam):
+        n0, t0 = len(chunks), time.perf_counter()
+        originals["_solve"](runner, snapshot, cam)
+        solves.append(dict(C=int(snapshot[0].Tcw.shape[0]),
+                           solvers=sorted({n for n, _ in chunks[n0:]}),
+                           chunks=len(chunks) - n0, aborted=runner._abort,
+                           wall_s=time.perf_counter() - t0))
+
+    def take(runner):
+        r = originals["take_result"](runner)
+        if r is not None:
+            applied.append(len(r[0]))
+        return r
+
+    spies = {"bundle_adjust": chunk_spy("bundle_adjust"),
+             "bundle_adjust_cg": chunk_spy("bundle_adjust_cg"),
+             "optimize_sim3": last_call("optimize_sim3"),
+             "optimize_essential_graph": last_call("optimize_essential_graph"),
+             "_solve": solve, "take_result": take}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    for mod, name in spied:
+        setattr(mod, name, spies[name])
+    t0 = time.perf_counter()
+    try:
+        with BuildCount(frame_mod) as builds:
+            slam, s = endurance_synthetic.run(
+                LONG_FRAMES, None, verbose=True, n_features=LONG_FEATURES,
+                leaves=LONG_LEAVES, device="cuda")
+    finally:
+        for mod, name in spied:
+            setattr(mod, name, originals[name])
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    peak_bytes = torch.cuda.max_memory_allocated()
+    launches = dict(kernels.LAUNCHES)
+    recs = slam.telemetry.records
+    peak_at = max(range(len(recs)), key=lambda i: recs[i]["n_kfs"])
+    lc = slam.loop_closer
+    pcg_applied = [C for C in applied if C > cut and any(
+        v["C"] == C and v["solvers"] == ["bundle_adjust_cg"]
+        and v["chunks"] == gba.N_CHUNKS for v in solves)]
+    print(f"endurance clover: {LONG_FRAMES} frames, {LONG_LEAVES} leaves, "
+          f"320x240, {LONG_FEATURES} features, in {wall_s:.1f} s ({builds.n} "
+          f"frame builds); tracked {s['n_tracked']}/{LONG_FRAMES}; loops "
+          f"closed {s['loops_closed']} (last {lc.last_loop}); ATE RMSE "
+          f"(Sim3-aligned) {100 * s['ate_rmse_m']:.3f} cm; keyframes "
+          f"{s['n_keyframes_final']} at the end, {recs[peak_at]['n_kfs']} at "
+          f"the peak (frame {peak_at}, {recs[peak_at]['n_mps']} points); "
+          f"points {s['n_points_final']} at the end; epoch violations "
+          f"{slam.tracker.epoch_violations}; host ms median by thirds "
+          f"{[round(x, 3) for x in s['host_ms_median_thirds']]}, p90 "
+          f"{[round(x, 3) for x in s['host_ms_p90_thirds']]}; peak device "
+          f"memory {peak_bytes} bytes (torch.cuda.max_memory_allocated); "
+          f"loop_closer.stats {s['loop_stats']}; reloc_stats "
+          f"{s['reloc_stats']}; kf_mp_median {s['kf_mp_median']}; launches "
+          f"{launches}; {card}", flush=True)
+    for v in solves:
+        print(f"global BA solve: C = {v['C']} keyframes, {v['chunks']} chunks "
+              f"through {v['solvers']}, aborted {v['aborted']}, "
+              f"{v['wall_s']:.3f} s on its thread", flush=True)
+    print(f"global BAs applied at C = {applied} (GBA_DENSE_MAX_CAMS {cut}); "
+          f"through bundle_adjust_cg past it: {pcg_applied}", flush=True)
+    print(f"local mapper stage ms, mean of the first 20 calls: "
+          f"{ {k: round(v, 3) for k, v in s['stage_ms_first20_mean'].items()} }; "
+          f"of the last 20: "
+          f"{ {k: round(v, 3) for k, v in s['stage_ms_last20_mean'].items()} }; "
+          f"{card}", flush=True)
+    m1, _, m3 = s["host_ms_median_thirds"]
+    if s["n_tracked"] < MIN_TRACKED_SHARE * LONG_FRAMES:
+        fail(f"the clover tracked {s['n_tracked']} of {LONG_FRAMES} frames")
+    if s["loops_closed"] < 1:
+        fail("the clover closed no loop")
+    if not pcg_applied:
+        fail(f"no global BA through bundle_adjust_cg past {cut} keyframes "
+             f"was applied (solves {solves}, applied {applied})")
+    if s["n_keyframes_peak"] <= cut:
+        fail(f"the clover's map peaked at {s['n_keyframes_peak']} keyframes "
+             f"(<= {cut})")
+    if not s["ate_rmse_m"] < MAX_LONG_ATE_M:
+        fail(f"clover ATE {100 * s['ate_rmse_m']:.3f} cm >= "
+             f"{100 * MAX_LONG_ATE_M:g} cm")
+    if slam.tracker.epoch_violations:
+        fail(f"{slam.tracker.epoch_violations} pose-epoch violations")
+    if m3 > MAX_THIRDS_RATIO * max(m1, 1.0):
+        fail(f"the last third's host-ms median {m3:.1f} is over "
+             f"{MAX_THIRDS_RATIO}x the first third's {m1:.1f}")
+    check_build_launches("the endurance clover", launches, builds.n)
+
+    # The long map's solves again on their inputs: the PCG chunk against
+    # the dense Schur solve on the same chunk (the cut-over reading), each
+    # over three calls; then the essential graph and OptimizeSim3 of the
+    # last call, warm from the run, timed over one call and profiled over
+    # one more (a profiled call of theirs costs 10-35 s of host time for
+    # its 30,000-115,000 records).
+    timed = {}
+    a, kw = captured["pcg_chunk"]
+    shapes = [tuple(a[0].Tcw.shape), tuple(a[0].points.shape),
+              tuple(a[0].e_cam.shape)]
+    for key, solver, fn in (
+            ("pcg_chunk", "bundle_adjust_cg",
+             lambda: originals["bundle_adjust_cg"](*a, **kw)),
+            ("dense_chunk", "bundle_adjust",
+             lambda: originals["bundle_adjust"](*a, n_iters=kw["n_iters"]))):
+        call_ms = cuda_ms(torch, fn, reps=3)
+        d_ms, n_k = stage_device_ms(torch, fn, reps=3, required=False)
+        timed[key] = dict(solver=solver, kernels=n_k, device_ms=d_ms,
+                          call_ms=call_ms, shapes=shapes, calls=3)
+        idle = "not measured" if d_ms is None else f"{1.0 - d_ms / call_ms:.3f}"
+        print(f"long map {key} ({solver}) on the run's inputs {shapes}: "
+              f"{n_k} device kernels, {ms_text(d_ms)} summed device time "
+              f"(profiler), call {call_ms:.3f} ms (CUDA events, 3 calls), "
+              f"device idle share {idle}; {card}", flush=True)
+    for name in ("optimize_essential_graph", "optimize_sim3"):
+        ca, ckw = captured[name]
+        fn = (lambda f=originals[name], ca=ca, ckw=ckw: f(*ca, **ckw))
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        call_ms = start.elapsed_time(end)
+        prof = profile_device(torch, f"long map {name}, one profiled call",
+                              fn, call_ms)
+        n_k, d_ms = (None, None) if prof is None else prof[:2]
+        timed[name] = dict(
+            solver=name, kernels=n_k, device_ms=d_ms, call_ms=call_ms,
+            calls=1, shapes=[tuple(x.shape) for x in ca
+                             if torch.is_tensor(x) and x.dim() >= 2][:2])
+        print(f"long map {name} on the run's inputs {timed[name]['shapes']}: "
+              f"call {call_ms:.3f} ms (CUDA events, one call); {card}",
+              flush=True)
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "clover_map.npz")
+        t0 = time.perf_counter()
+        slam.save_map(path)
+        save_ms = 1e3 * (time.perf_counter() - t0)
+        map_bytes = os.path.getsize(path)
+    n_kf = slam.arena.n_keyframes()
+    print(f"long map saved: {map_bytes} bytes for {n_kf} keyframes and "
+          f"{slam.arena.n_points()} points, {map_bytes / max(n_kf, 1):.1f} "
+          f"bytes per keyframe, {save_ms:.1f} ms", flush=True)
+    return dict(
+        frames=LONG_FRAMES, leaves=LONG_LEAVES, builds=builds.n,
+        n_tracked=s["n_tracked"], loops=s["loops_closed"],
+        last_loop=lc.last_loop, ate_cm=100 * s["ate_rmse_m"],
+        keyframes_final=s["n_keyframes_final"],
+        keyframes_peak=recs[peak_at]["n_kfs"], peak_frame=peak_at,
+        points_at_peak=recs[peak_at]["n_mps"], points_final=s["n_points_final"],
+        epoch_violations=slam.tracker.epoch_violations,
+        host_ms_median_thirds=s["host_ms_median_thirds"],
+        host_ms_p90_thirds=s["host_ms_p90_thirds"],
+        stage_ms_first20_mean=s["stage_ms_first20_mean"],
+        stage_ms_last20_mean=s["stage_ms_last20_mean"],
+        loop_stats=s["loop_stats"], gba_solves=solves, gba_applied_C=applied,
+        peak_device_bytes=peak_bytes, map_bytes=map_bytes,
+        map_bytes_per_keyframe=map_bytes / max(n_kf, 1), save_ms=save_ms,
+        solves=timed, wall_s=wall_s, launches=launches), slam
+
+
+def viewer_phase(torch, kernels, slam, card) -> dict:
+    """Phase 13b (see the module docstring) on 13a's System, then ARDemo on
+    a fresh System; returns its numbers."""
+    import urllib.request
+
+    from orb_slam_system_tpu_torch.drivers import (endurance_synthetic,
+                                                   mono_synthetic)
+    from orb_slam_system_tpu_torch.models import ar, viewer
+    from orb_slam_system_tpu_torch.models import frame as frame_mod
+    from orb_slam_system_tpu_torch.models.system import System
+    out: dict = {}
+    cfg = slam.cfg
+    last = endurance_synthetic.make_renderer(cfg).render(
+        endurance_synthetic.clover_trajectory(
+            LONG_FRAMES, leaves=LONG_LEAVES)[-1])
+    tr = slam.tracker
+    t0 = time.perf_counter()
+    tracked, vo = viewer._point_classes(tr.current)
+    ann = viewer.annotate_frame(last, viewer.frame_xy(tr.current), tracked,
+                                vo_mask=vo, init_vis=tr.init_vis)
+    line = viewer.status_text(slam.get_tracking_state(),
+                              slam.arena.n_keyframes(), slam.arena.n_points(),
+                              int((tracked & ~vo).sum()), n_vo=int(vo.sum()),
+                              localization=tr.only_tracking)
+    out["annotate_ms"] = 1e3 * (time.perf_counter() - t0)
+    green = int(np.all(ann == viewer.GREEN, axis=2).sum())
+    print(f"viewer: last frame annotated {ann.shape} {ann.dtype} in "
+          f"{out['annotate_ms']:.2f} ms, {int(tracked.sum())} tracked "
+          f"features, {green} green pixels; status: {line}", flush=True)
+    if ann.shape != (cfg.camera.height, cfg.camera.width, 3) or not green:
+        fail("the annotated last frame is malformed or has no tracked box")
+    if slam.get_tracking_state().name not in line:
+        fail(f"the status line lacks the state: {line}")
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "map.ply")
+        t0 = time.perf_counter()
+        viewer.export_map_ply(path, slam.arena)
+        out["ply_ms"] = 1e3 * (time.perf_counter() - t0)
+        out["ply_bytes"] = os.path.getsize(path)
+        head = open(path).read(400)
+    n_vert = slam.arena.n_points() + slam.arena.n_keyframes()
+    print(f"export_map_ply of the long map: {out['ply_bytes']} bytes in "
+          f"{out['ply_ms']:.1f} ms ({n_vert} vertices)", flush=True)
+    if f"element vertex {n_vert}\n" not in head:
+        fail("the PLY export's vertex count is not the map's")
+    live = viewer.LiveViewer(slam, port=0)
+    base = f"http://127.0.0.1:{live.port}"
+    try:
+        def get(path):
+            with urllib.request.urlopen(base + path, timeout=30) as resp:
+                return resp.read()
+        get("/frame.png")           # arms the frame gate
+        t0 = time.perf_counter()
+        live.update(last)
+        out["live_update_ms"] = 1e3 * (time.perf_counter() - t0)
+        m = json.loads(get("/map.json"))
+        png = get("/frame.png")
+    finally:
+        live.shutdown()
+    out["map_json_keyframes"] = len(m["kfs"])
+    print(f"LiveViewer on port {live.port}: update {out['live_update_ms']:.2f} "
+          f"ms; map.json {len(m['pts'])} points, {len(m['kfs'])} keyframes, "
+          f"{len(m['edges'])} edges; frame.png {len(png)} bytes", flush=True)
+    if len(m["kfs"]) != slam.arena.n_keyframes() or len(m["frusta"]) != len(m["kfs"]):
+        fail(f"map.json has {len(m['kfs'])} keyframes, the map "
+             f"{slam.arena.n_keyframes()}")
+    if png[:8] != b"\x89PNG\r\n\x1a\n" or len(png) < 1000:
+        fail("the live viewer served no annotated frame")
+
+    # ARDemo over the first AR_FRAMES frames of phase 5's cached orbit.
+    acfg = mono_synthetic.make_config(640, 480, 1000)
+    frames, _ = mono_synthetic.render_sequence(acfg, SYSTEM_FRAMES)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    demo = ar.ARDemo(System(acfg, device="cuda"))
+    plane_at, drawn, t0 = None, [], time.perf_counter()
+    with BuildCount(frame_mod) as builds:
+        for i, img in enumerate(frames[:AR_FRAMES]):
+            shown = demo.process(img, i / 30.0)
+            if demo.plane is not None and plane_at is None:
+                plane_at = i
+            changed = int((shown != np.clip(img, 0, 255).astype(np.uint8)).sum())
+            if demo.plane is not None:
+                drawn.append(changed)
+    demo.system.shutdown()
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    out.update(ar_frames=AR_FRAMES, ar_plane_at=plane_at, ar_cube_pixels=drawn,
+               ar_wall_s=time.perf_counter() - t0, ar_builds=builds.n,
+               ar_launches=launches,
+               ar_points=demo.system.arena.n_points())
+    print(f"ARDemo: {AR_FRAMES} frames 640x480 in {out['ar_wall_s']:.1f} s; "
+          f"plane fitted at frame {plane_at} ({out['ar_points']} map points "
+          f"at the end); cube pixels per frame after it {drawn}; launches "
+          f"{launches}; {card}", flush=True)
+    if plane_at is None:
+        fail("ARDemo fitted no plane")
+    if not any(n > 50 for n in drawn):
+        fail("ARDemo drew no cube on a tracked frame")
+    check_build_launches("the AR demo", launches, builds.n)
+    return out
+
+
 def main() -> None:
     try:
         import torch
@@ -2365,6 +2718,11 @@ def main() -> None:
     # 12. The multi-sequence mode; the counters count only each run.
     multiseq = multiseq_phase(torch, kernels, check_kernel_b, card)
     phases_done(12)
+    # 13. The long run, then the viewer and AR; the counters count only each
+    # run.
+    long_run, long_slam = long_run_phase(torch, kernels, card)
+    view = viewer_phase(torch, kernels, long_slam, card)
+    phases_done(13)
     for name, key in (("fast_score_nms", "kernel_a"),
                       ("gather_blur_moments", "kernel_b")):
         for shape, ph in (("at_stereo_shape", stereo),
@@ -2394,7 +2752,8 @@ def main() -> None:
                    for k, v in sequences["runs"].items()},
                 "seq_map_localization": sequences["map"]["launches"],
                 "multiseq": multiseq["full"]["launches"],
-                "multiseq_frontend": multiseq["frontend"]["launches"]}
+                "multiseq_frontend": multiseq["frontend"]["launches"],
+                "long_run": long_run["launches"], "ar": view["ar_launches"]}
     counter = dict(fast_score_nms="fast_score_nms",
                    gather_blur_moments="gather_blur_describe",
                    brief_pack="brief_pack", gather_patches="gather_patches")
@@ -2404,6 +2763,8 @@ def main() -> None:
     print(json.dumps({"realtime": realtime}, default=str), flush=True)
     print(json.dumps({"sequences": sequences}, default=str), flush=True)
     print(json.dumps({"multiseq": multiseq}, default=str), flush=True)
+    print(json.dumps({"long_run": long_run, "viewer": view}, default=str),
+          flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": r["source"],

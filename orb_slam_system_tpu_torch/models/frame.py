@@ -91,6 +91,10 @@ class Frame:
     def n_valid(self) -> int:
         return int(self.feats.valid.sum())
 
+    def camera_center(self) -> np.ndarray:
+        R = self.Tcw[:3, :3]
+        return -R.T @ self.Tcw[:3, 3]
+
 
 class FrameBuilder:
     """Shape-specialized frame construction (extraction + undistortion) on

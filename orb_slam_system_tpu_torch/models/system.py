@@ -40,7 +40,8 @@ CUDA stream, as tracking does, so the card runs it in one order.
 
 Map persistence: save_map / load_map (mapping/serialize.py's .npz, read
 by both packages); a loaded map is relocalized against, by default in
-localization mode. Not in this port yet: the viewer.
+localization mode. The viewer (use_viewer; models/viewer.py) shows each
+frame after it is tracked: a live page on localhost, or a status line.
 """
 
 from __future__ import annotations
@@ -72,7 +73,8 @@ class System:
     def __init__(self, settings: Union[str, SlamConfig],
                  sensor: Sensor = Sensor.MONOCULAR, device="cuda",
                  vocabulary_path: Optional[str] = None,
-                 sync_gba: bool = False, async_mapping: bool = False):
+                 sync_gba: bool = False, async_mapping: bool = False,
+                 use_viewer: bool = False, viewer_port: Optional[int] = None):
         set_f32_policy()
         self.sensor = Sensor(sensor)
         self.cfg = (load_settings(settings, self.sensor)
@@ -92,9 +94,9 @@ class System:
         self.tracker = Tracker(self.cfg, self.arena, self.local_mapper, device,
                                place_rec=self.place_rec)
         self._timings: list[float] = []
-        # Per-frame records: state, tracked points, map size, loops closed,
-        # global BAs applied, track_ms, mapping_ms (host clock; both end in
-        # a device fetch).
+        # Per-frame records: state, keypoints, inliers, tracked points, map
+        # size, track_ms, mapping_ms (host clock; both end in a device
+        # fetch), loops closed, global BAs applied.
         self.telemetry = Telemetry()
         # Reentrant: the Track* entry points and state getters may be called
         # from several threads (reference mMutexMode / mMutexState).
@@ -102,30 +104,41 @@ class System:
         self.async_mapping = async_mapping
         if async_mapping:
             self.local_mapper.start_async()
+        # The reference's Viewer: with a port (0 picks a free one) the live
+        # page on localhost, else a status line per frame
+        # (models/viewer.py). It reads host copies only.
+        self.viewer = None
+        if use_viewer:
+            from orb_slam_system_tpu_torch.models import viewer
+            self.viewer = (viewer.LiveViewer(self, port=viewer_port)
+                           if viewer_port is not None
+                           else viewer.StatsViewer(self))
 
     def track_monocular(self, img: np.ndarray, timestamp: float):
         """Reference TrackMonocular. img: grayscale or RGB (converted);
         returns Tcw (4x4) or None."""
         self._check_sensor(Sensor.MONOCULAR, "track_monocular")
-        return self._track(self.tracker.grab_monocular, timestamp,
-                           self._gray(img), timestamp)
+        gray = self._gray(img)
+        return self._track(self.tracker.grab_monocular, timestamp, gray,
+                           timestamp, view=gray)
 
     def track_stereo(self, img_left: np.ndarray, img_right: np.ndarray,
                      timestamp: float):
         """Reference TrackStereo: a rectified pair, grayscale or RGB
         (converted); returns Tcw (4x4) or None."""
         self._check_sensor(Sensor.STEREO, "track_stereo")
-        return self._track(self.tracker.grab_stereo, timestamp,
-                           self._gray(img_left), self._gray(img_right),
-                           timestamp)
+        left = self._gray(img_left)
+        return self._track(self.tracker.grab_stereo, timestamp, left,
+                           self._gray(img_right), timestamp, view=left)
 
     def track_rgbd(self, img: np.ndarray, depth: np.ndarray, timestamp: float):
         """Reference TrackRGBD: an image, grayscale or RGB (converted), and
         its raw depth map (DepthMapFactor units); returns Tcw (4x4) or
         None."""
         self._check_sensor(Sensor.RGBD, "track_rgbd")
-        return self._track(self.tracker.grab_rgbd, timestamp, self._gray(img),
-                           depth, timestamp)
+        gray = self._gray(img)
+        return self._track(self.tracker.grab_rgbd, timestamp, gray, depth,
+                           timestamp, view=gray)
 
     TrackMonocular = track_monocular
     TrackStereo = track_stereo
@@ -138,13 +151,13 @@ class System:
     def _gray(self, img: np.ndarray) -> np.ndarray:
         return rgb_to_gray(img, self.cfg.camera.rgb) if img.ndim == 3 else img
 
-    def _track(self, grab, timestamp: float, *args):
+    def _track(self, grab, timestamp: float, *args, view=None):
         """Track one frame through grab(*args) under the System's lock, then
-        _after_frame."""
+        _after_frame (view: the image the viewer shows)."""
         with self._lock:
             t0 = time.perf_counter()
             Tcw = grab(*args)
-            self._after_frame(timestamp, t0, time.perf_counter())
+            self._after_frame(timestamp, t0, time.perf_counter(), view)
             return Tcw
 
     def _pump_mapping(self):
@@ -154,20 +167,38 @@ class System:
             self.local_mapper.process_pending()
         self.loop_closer.poll_gba()
 
-    def _after_frame(self, timestamp: float, t0: float, t1: float):
-        """Pump mapping after a frame tracked from t0 to t1 (host clock) and
-        record its telemetry."""
+    def _after_frame(self, timestamp: float, t0: float, t1: float,
+                     view: Optional[np.ndarray] = None):
+        """Pump mapping after a frame tracked from t0 to t1 (host clock),
+        record its telemetry and show `view` in the viewer."""
         self._pump_mapping()
         t2 = time.perf_counter()
         self._timings.append(t2 - t0)
+        cur = self.tracker.current
+        # No fetch for telemetry: the frame's host copy where it has one,
+        # else the count the last device step reported.
+        n_kp = (int(cur.feats_host.valid.sum())
+                if cur is not None and cur.feats_host is not None
+                else self.tracker.last_n_valid)
         self.telemetry.emit(
-            t=timestamp, state=int(self.tracker.state),
+            t=timestamp, state=int(self.tracker.state), n_keypoints=n_kp,
             n_inliers=self.tracker.n_inliers,
             n_tracked=len(self.get_tracked_map_points()),
             n_kfs=self.arena.n_keyframes(), n_mps=self.arena.n_points(),
+            track_ms=(t1 - t0) * 1e3, mapping_ms=(t2 - t1) * 1e3,
             loops=self.loop_closer.n_loops_closed,
-            gba_applied=self.loop_closer.n_gba_applied,
-            track_ms=(t1 - t0) * 1e3, mapping_ms=(t2 - t1) * 1e3)
+            gba_applied=self.loop_closer.n_gba_applied)
+        if view is not None:
+            self._view(view)
+
+    def _view(self, img: np.ndarray):
+        """The viewer's per-frame update (the reference Viewer::Run
+        cadence); a viewer failure never stops tracking."""
+        if self.viewer is not None:
+            try:
+                self.viewer.update(img)
+            except Exception:  # noqa: BLE001 - the viewer never stops SLAM
+                pass
 
     def track_monocular_prebuilt(self, frame):
         """Track a frame built by tracker.build_frame (or any builder of this
@@ -209,7 +240,7 @@ class System:
                         img2, ts2 = self._gray(nxt[0]), nxt[1]
                         pending = (tr.build_frame(img2, ts2), img2, ts2)
                 Tcw = tr.grab_prebuilt(frame)
-                self._after_frame(ts, t0, time.perf_counter())
+                self._after_frame(ts, t0, time.perf_counter(), img)
             yield Tcw
 
     def track_monocular_pipelined(self, frames, resync_every: int = 0,
@@ -256,6 +287,27 @@ class System:
 
     def _track_pipelined(self, items, build_steady, build_classic,
                          resync_every: int, depth: int):
+        """_pipelined_frames, with each frame's image shown in the viewer
+        when its pose is yielded (frames come out in order)."""
+        if self.viewer is None:
+            yield from self._pipelined_frames(items, build_steady,
+                                              build_classic, resync_every,
+                                              depth)
+            return
+        shown: deque = deque()
+
+        def tap():
+            for it in items:
+                shown.append(it[0])
+                yield it
+        for Tcw in self._pipelined_frames(tap(), build_steady, build_classic,
+                                          resync_every, depth):
+            with self._lock:
+                self._view(self._gray(shown.popleft()))
+            yield Tcw
+
+    def _pipelined_frames(self, items, build_steady, build_classic,
+                          resync_every: int, depth: int):
         """The pipelined loop (JAX system.py:336-609): build_steady makes a
         chain frame, build_classic one for the classic path (monocular:
         the 2x-features builder until initialized)."""
@@ -390,6 +442,8 @@ class System:
         self.local_mapper.process_pending()
         self.loop_closer.gba.join()
         self.loop_closer.poll_gba()
+        if self.viewer is not None and hasattr(self.viewer, "shutdown"):
+            self.viewer.shutdown()
 
     Reset = reset
     Shutdown = shutdown

@@ -244,6 +244,14 @@ def fused_track_step(programs, packed_last, packed_cur, last_Tcw,
                        n_valid=n_valid)
 
 
+def _with_count(idx: torch.Tensor, valid: torch.Tensor):
+    """(idx as numpy, valid.sum()) in one device->host copy: a search's
+    result and the frame's valid-feature count."""
+    out = torch.cat([idx.reshape(-1).to(torch.int64),
+                     valid.sum().reshape(1).to(torch.int64)]).cpu().numpy()
+    return out[:-1].reshape(idx.shape), int(out[-1])
+
+
 @dataclasses.dataclass
 class TrajectoryEntry:
     """Per-frame relative pose record (reference mlRelativeFramePoses)."""
@@ -282,6 +290,9 @@ class Tracker(InitAndKeyframes):
         self.last_frame: Optional[Frame] = None
         self.current: Optional[Frame] = None
         self.init_ref: Optional[Frame] = None
+        # Matched (reference, current) keypoints of the last initialization
+        # attempt, for the viewer's overlay; None once initialized.
+        self.init_vis: Optional[tuple] = None
         self.prev_matched: Optional[np.ndarray] = None
         self.ref_kf_id = -1
         self.last_kf_frame_id = -1
@@ -297,6 +308,11 @@ class Tracker(InitAndKeyframes):
         self.only_tracking = False
         self.mb_vo = False
         self.n_inliers = 0
+        # Valid features of the current frame as the last device step
+        # reported them (fused, motion or chain step): the telemetry's
+        # n_keypoints where the frame has no host copy, so recording it
+        # fetches nothing.
+        self.last_n_valid = 0
         self.local_kf_ids: list[int] = []
         # ((local keyframe ids, arena.version) -> padded local-map block)
         self._local_block_cache = None
@@ -564,9 +580,10 @@ class Tracker(InitAndKeyframes):
         if ok.sum() < 10:
             return False
         proj, front = self._project(pos, Tcw_pred)
-        T, best_j, matched, inlier, n_in, n_matched, _ = \
+        T, best_j, matched, inlier, n_in, n_matched, n_valid = \
             self.programs.motion_step(proj, ok & front, pos, last.packed,
                                       cur.packed, Tcw_pred, th=15.0)
+        self.last_n_valid = n_valid
         if n_matched < 20:
             return False
         # Edge r maps last slot r to current slot best_j[r] (one row per
@@ -635,7 +652,7 @@ class Tracker(InitAndKeyframes):
             self._tensor(kf.feats.desc), self._tensor(kf.feats.valid & has_mp),
             self._tensor(kf.feats.angle), self._tensor(node_kf),
             c_desc, c_valid, c_ang, node_cur.to(torch.int64))
-        idx2 = res.idx2.cpu().numpy()
+        idx2, self.last_n_valid = _with_count(res.idx2, c_valid)
         rows = np.nonzero(idx2 >= 0)[0]
         if len(rows) < 15:
             return False
@@ -842,9 +859,10 @@ class Tracker(InitAndKeyframes):
         # The fetch waits for the card: the mapper's host work may run.
         with t.stage("fused_device"), self.arena.unlocked():
             (T2, best_j, matched, inlier1, idx2, visible, already, inlier2,
-             n_in1, n_matched, _, n_in2) = self.programs.fused_step(
+             n_in1, n_matched, n_valid, n_in2) = self.programs.fused_step(
                 proj, ok, pos, last.packed, cur.packed, Tcw_pred,
                 pos_lm, normal, mind, maxd, desc_lm, valid_lm, last2local)
+        self.last_n_valid = n_valid
         # Acceptance gates first (reference :570-575): a weak result falls
         # back to the two-step path with no state changed.
         if (n_matched < 20 or n_in1 < 10 or n_in2 < 30
@@ -954,8 +972,9 @@ class Tracker(InitAndKeyframes):
         t = self.stage_ms
         self._frame_epoch = self.arena.pose_epoch
         with t.stage("chain_decode"):
-            (T2, assoc, visible, already, n_in1, n_matched, _, n_in2,
+            (T2, assoc, visible, already, n_in1, n_matched, n_valid, n_in2,
              close_counts) = self.programs.decode_chain_out(host_out)
+        self.last_n_valid = n_valid
         # The reference's gates (fused step, :570-575).
         if n_matched < 20 or n_in1 < 10:
             return self._chain_reject()
@@ -1088,9 +1107,9 @@ class Tracker(InitAndKeyframes):
             ang1[i, :m] = kf.feats.angle
             node1[i, :m] = np.where(has, nk, -1)
         t = self._tensor
-        idx2_all = matching.search_by_node_id(
+        idx2_all, self.last_n_valid = _with_count(matching.search_by_node_id(
             t(desc1), t(has1), t(ang1), t(node1), c_desc, c_valid, c_ang,
-            node_ids.to(torch.int64), nn_ratio=0.75).idx2.cpu().numpy()
+            node_ids.to(torch.int64), nn_ratio=0.75).idx2, c_valid)
         # Host: per-candidate 3D-2D correspondences on the frame's slots.
         n = cur.n_slots
         Xw_all = np.zeros((C, n, 3), np.float32)
@@ -1219,6 +1238,7 @@ class Tracker(InitAndKeyframes):
         holds the map's locks."""
         self.velocity = None
         self.last_frame = self.current = self.init_ref = None
+        self.init_vis = None
         self.prev_matched = None
         self.ref_kf_id = self.last_kf_frame_id = self.last_kf_id = -1
         self.local_kf_ids = []

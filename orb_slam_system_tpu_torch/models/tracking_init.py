@@ -72,8 +72,13 @@ class InitAndKeyframes:
             prev_matched_xy=self._tensor(self.prev_matched))
         idx2 = res.idx2.cpu().numpy()
         matched = idx2 >= 0
+        # The viewer's initialization overlay (reference FrameDrawer
+        # :27-48): the matched (reference, current) keypoint pairs.
+        self.init_vis = (ref.feats.xy_und[matched].copy(),
+                         cur.feats.xy_und[idx2[matched]].copy())
         if int(matched.sum()) < 100:           # reference :316-321
             self.init_ref = None
+            self.init_vis = None
             return
         # Drift tolerance for the next attempt (reference :323).
         self.prev_matched[matched] = cur.feats.xy_und[idx2[matched]]
@@ -170,6 +175,7 @@ class InitAndKeyframes:
         self.local_mapper.insert_keyframe(kf1.id)
         self.local_mapper.insert_keyframe(kf2.id)
         self.init_ref = None
+        self.init_vis = None
         self.state = TrackingState.OK
 
     def stereo_initialization(self):
@@ -207,6 +213,7 @@ class InitAndKeyframes:
         self.arena.dead_kfs.clear()
         self.arena.kf_origin_id = -1
         self.init_ref = None
+        self.init_vis = None
         self.state = TrackingState.NOT_INITIALIZED
 
     # ---- keyframe decision / creation (reference :578-659) ----------------

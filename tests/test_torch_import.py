@@ -23,7 +23,9 @@ for new in ("vocab.vocabulary", "mapping.keyframe_db",
             "drivers.mono_kitti", "drivers.stereo_kitti", "drivers.mono_euroc",
             "drivers.stereo_euroc", "drivers.evaluate_ate",
             "drivers.run_dataset", "parallel", "parallel.multi_system",
-            "parallel.multiseq", "drivers.multiseq_throughput"):
+            "parallel.multiseq", "drivers.multiseq_throughput",
+            "drivers.endurance_synthetic", "drivers.kitti_synthetic",
+            "models.ar"):
     assert pkg.__name__ + "." + new in names, new
 for n in names:
     importlib.import_module(n)
@@ -36,6 +38,11 @@ for m in ("track_monocular_stream", "track_monocular_pipelined",
 from orb_slam_system_tpu_torch import native
 assert native._lib is None, "the native decoder was built at import"
 assert "async_mapping" in inspect.signature(System).parameters
+assert "use_viewer" in inspect.signature(System).parameters
+from orb_slam_system_tpu_torch.models import viewer
+for name in ("annotate_frame", "status_text", "export_map_ply", "LiveViewer",
+             "StatsViewer", "write_pgm", "encode_png"):
+    assert hasattr(viewer, name), name
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.")
              or m == "orb_slam_system_tpu" or m.startswith("orb_slam_system_tpu.")
@@ -87,8 +94,9 @@ def test_port_never_imports_jax():
     named), chip_smoke.py and kernel_times.py import without jax, the JAX
     package, tools/ or examples/, and without building the native decoder;
     the System has its realtime and map entry points. The multi-sequence
-    modules (parallel/, drivers/multiseq_throughput) are among them."""
-    assert int(_run(_IMPORT_ALL).split()[-1]) >= 69
+    modules (parallel/, drivers/multiseq_throughput) are among them, and
+    the long-run drivers, the whole viewer and the AR overlay."""
+    assert int(_run(_IMPORT_ALL).split()[-1]) >= 72
 
 
 def test_entry_points_default_to_the_card():
@@ -103,7 +111,9 @@ def test_entry_points_default_to_the_card():
     from orb_slam_system_tpu_torch.models.system import System
     from orb_slam_system_tpu_torch.models.track_device import TrackPrograms
     from orb_slam_system_tpu_torch.models.tracking import Tracker
-    from orb_slam_system_tpu_torch.drivers import (loop_synthetic,
+    from orb_slam_system_tpu_torch.drivers import (endurance_synthetic,
+                                                   kitti_synthetic,
+                                                   loop_synthetic,
                                                    mono_synthetic,
                                                    multiseq_throughput)
     from orb_slam_system_tpu_torch.parallel.multi_system import MultiSystem
@@ -112,7 +122,8 @@ def test_entry_points_default_to_the_card():
                   PlaceRecognition, LoopCloser, mono_synthetic.run,
                   loop_synthetic.run, MultiSystem, make_multiseq_step,
                   multiseq_throughput.run_full,
-                  multiseq_throughput.run_frontend):
+                  multiseq_throughput.run_frontend, endurance_synthetic.run,
+                  kitti_synthetic.run):
         assert inspect.signature(entry).parameters["device"].default == "cuda", entry
     from orb_slam_system_tpu_torch.drivers import _driver_util, run_dataset
     assert run_dataset.parse_args(["seq"]).device == "cuda"
@@ -120,14 +131,17 @@ def test_entry_points_default_to_the_card():
                                    ["none"]).device == "cuda"
     # multiseq_throughput.main parses --device with the dataset drivers'
     # helper; without it the entry point gets "cuda".
-    seen = {}
-    orig = multiseq_throughput.run_full
-    multiseq_throughput.run_full = lambda *a, **kw: seen.update(kw)
-    try:
-        multiseq_throughput.main(["2", "3", "out"])
-    finally:
-        multiseq_throughput.run_full = orig
-    assert seen["device"] == "cuda"
+    for mod, attr, argv in ((multiseq_throughput, "run_full", ["2", "3", "out"]),
+                            (endurance_synthetic, "run", ["10"]),
+                            (kitti_synthetic, "run", ["10"])):
+        seen = {}
+        orig = getattr(mod, attr)
+        setattr(mod, attr, lambda *a, **kw: seen.update(kw))
+        try:
+            mod.main(argv)
+        finally:
+            setattr(mod, attr, orig)
+        assert seen["device"] == "cuda", mod
 
 
 def test_wrappers_take_plain_path_on_cpu():
