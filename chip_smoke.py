@@ -96,15 +96,16 @@ Phases, each of which fails the run (exit code != 0) when it fails:
      of the frame builds beside them (kernel A and B's describe mode must
      launch once per build; a frame the chain drops and builds again
      counts twice):
-     a. bench.py's bench_system_fps shape: phase 5's front end over a
-        72-frame orbit in u8, System(async_mapping=True), 16 classic
-        frames, 8 pipelined warm-up frames, then 48 timed frames through
-        track_monocular_pipelined(depth=2): fps over the 48, chain_stats,
+     a. bench.py's bench_system_fps shape: phase 5's front end over the
+        first 40 frames of a 72-frame orbit in u8,
+        System(async_mapping=True), 16 classic frames, 8 pipelined warm-up
+        frames, then 16 timed frames through
+        track_monocular_pipelined(depth=2): fps over the 16, chain_stats,
         kf_wait_stats, the tracking and mapping stage medians; bars >= 90%
         of the timed frames OK, OK at the end, ATE < 3 cm, >= 1 chain
         accept. Then one chain step from enqueue to its event wait on the
         finished map, profiled (kernels, device ms, idle share). Then a
-        fresh async System: 24 classic frames and the same 48 through
+        fresh async System: 24 classic frames and the same 16 through
         track_monocular_stream, its fps beside phase 5's classic per-frame
         time, with the same bars but the chain's;
      b. phase 7's loop circle through track_monocular_pipelined: >= 1 loop
@@ -145,7 +146,7 @@ Phases, each of which fails the run (exit code != 0) when it fails:
  12. the multi-sequence mode (BASELINE.json config 5), the counters read
      around each run:
      a. S = 5 full Systems through drivers/multiseq_throughput.run_full and
-        MultiSystem.track_batch, 30 frames each at the camera and extractor
+        MultiSystem.track_batch, 20 frames each at the camera and extractor
         of settings/euroc_mono.yaml (752x480 pinhole, 1000 features, 8
         levels), synchronous mapping; per sequence the bars of
         tests/test_multiseq_system.py (OK at the end, >= 3 keyframes, > 100
@@ -195,6 +196,40 @@ Phases, each of which fails the run (exit code != 0) when it fails:
         on a fresh System over the first 30 frames of phase 5's cached
         640x480 orbit: a plane fitted, cube pixels drawn on a tracked
         frame, A and B once per frame build.
+ 14. the last modules (the ROS bridge, the live and video drivers, the warm
+     pass, the sharded solvers), the counters read around each run:
+     a. the four ROS nodes (drivers/ros_*.py), each main through a
+        dataio/ros_replay.ReplayRospy that replays its messages in spin():
+        ros_mono over 30 of phase 5's cached renders as mono8 (its settings
+        written with config.save_settings_yaml; OK at the end, >= 90%
+        tracked after initialization, >= 3 KeyFrameTrajectory.txt rows,
+        Sim3 ATE < 3 cm), ros_stereo over phase 8's first 10 KITTI-width
+        pairs with do_rectify false, the right stamps jittered within 4 ms
+        (every pair paired, OK at the end, a CameraTrajectory.txt row a
+        pair), ros_rgbd over phase 9's first 10 frames with 32FC1 depth (OK,
+        both trajectory files written) and ros_mono_ar over 10 of phase 5's
+        renders (an overlay a message); A and B's describe mode once per
+        frame build in each;
+     b. live_camera.run over 24 BGR copies of phase 5's renders from a fake
+        capture, pipelined with the async mapper (24 frames, OK at the end);
+        video_slam.main over a folder of 20 of them as PNGs and one .txt
+        file (20 frames read, the trajectory written); where ffmpeg is on
+        PATH, iter_video over the same frames encoded losslessly (the
+        output says whether it ran);
+     c. System(prewarm=True) on phase 5's config, 16 frames a mode: each
+        mode's seconds, then the track ms of its first 5 frames beside
+        phase 5's first 5;
+     d. an in-process NCCL group of one rank on card 0: the sharded global
+        BA on 13a's PCG chunk and the sharded essential graph on 13a's last
+        inputs, each bit-equal to the unsharded solve of the same inputs,
+        with call ms and kernels beside the unsharded call's; then
+        multiseq.dryrun(1) on the group (the dp x sp step, both sharded
+        solvers at JAX's dry-run sizes, a 2-System MultiSystem; A and B's
+        describe mode once per extraction), and dryrun_multichip across the
+        cards where there are several.
+To make room for phase 14 inside the script's clock, phase 10a times 16
+frames in each mode (48 before phase 14 came) and phase 12a runs 20
+frames a sequence (30 before); their bars are shares of the frames.
 The synthetic frames are rendered on the host, and later phases render poses
 of earlier ones again: memoize_renders serves a repeat from a cache (the
 same image), and the script prints its clock after each phase. The
@@ -240,7 +275,8 @@ STEREO_FRAMES = 30          # phase 8: KITTI-width stereo pairs
 MAX_STEREO_ATE_M = 0.12     # tests/test_e2e_stereo.py's bars
 MAX_SPAN_ERR_STEREO = 0.15
 RGBD_FRAMES = 30            # phase 9
-REALTIME_FRAMES = 72        # phase 10a: bench_system_fps's orbit: its
+REALTIME_FRAMES = 72        # phase 10a: bench_system_fps's orbit, of which
+REALTIME_RUN = 40           # the first 40 run (all 72 before phase 14): its
 REALTIME_CLASSIC = 16       # classic frames, then
 REALTIME_WARM = 8           # pipelined warm-up frames, then the timed rest
 REALTIME_STEREO = 30        # phase 10c: KITTI-width pairs
@@ -254,7 +290,7 @@ MAP_FRAME = 15              # phase 11d: the view relocalized on a loaded map
 MAP_MORE_FRAMES = 5         # ... and the frames tracked after it
 MAX_LOAD_DIFF = 1e-4        # used-System load against a fresh System's
 MULTISEQ_SEQS = 5           # phase 12a: BASELINE.json config 5, MH01-05
-MULTISEQ_FRAMES = 30        # ... frames per sequence
+MULTISEQ_FRAMES = 20        # ... frames per sequence (30 before phase 14)
 MAX_MULTISEQ_ATE_M = 0.05   # tests/test_multiseq_system.py's bar
 FRONTEND_SEQS = 8           # phase 12b: the JAX example's --frontend shape
 FRONTEND_FRAMES = 20
@@ -269,6 +305,12 @@ LONG_FEATURES = 400
 MAX_LONG_ATE_M = 0.12       # tests/test_endurance.py's bars
 MAX_THIRDS_RATIO = 2.5
 AR_FRAMES = 30              # phase 13b: ARDemo over phase 5's first frames
+ROS_MONO_FRAMES = 30        # phase 14a: ros_mono over phase 5's first renders
+ROS_FRAMES = 10             # ... the stereo, RGB-D and AR nodes' messages
+LIVE_FRAMES = 24            # phase 14b: live_camera's fake capture
+VIDEO_FRAMES = 20           # ... video_slam's PNG folder
+WARM_FRAMES = 16            # phase 14c: frames of each warm mode
+WARM_AFTER = 5              # ... then phase 5's first frames tracked
 # EuRoC cam0's intrinsics (examples/settings/euroc_mono.yaml) without its
 # distortion: the renderer is a pinhole.
 EUROC_W, EUROC_H = 752, 480
@@ -996,19 +1038,11 @@ def stereo_phase(torch, kernels, check_kernel_b, card) -> dict:
 
 def rgbd_phase(torch, kernels, card) -> dict:
     """Phase 9 (see the module docstring); returns its numbers."""
-    from orb_slam_system_tpu_torch.config import (CameraConfig, ORBConfig,
-                                                  Sensor, SlamConfig,
-                                                  TrackingState)
+    from orb_slam_system_tpu_torch.config import TrackingState
     from orb_slam_system_tpu_torch.drivers import rgbd_synthetic
 
-    W, H = 640, 480
-    cam = CameraConfig(fx=520.0, fy=520.0, cx=W / 2, cy=H / 2, fps=30.0,
-                       width=W, height=H, bf=40.0)
-    # TUM's ThDepth 40 in baseline units, given in metres so that the JAX
-    # package (which stores the number raw) sees the same threshold.
-    cfg = SlamConfig(camera=cam, orb=ORBConfig(n_features=1000),
-                     sensor=Sensor.RGBD, th_depth=40.0 * 40.0 / 520.0,
-                     depth_map_factor=rgbd_synthetic.DEPTH_MAP_FACTOR)
+    cfg = rgbd_config()
+    W, H = cfg.camera.width, cfg.camera.height
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
@@ -1144,11 +1178,12 @@ def realtime_phase(torch, kernels, card, classic_frame_ms: float) -> dict:
     W, H = 640, 480
     cfg = mono_synthetic.make_config(W, H, 1000)
     frames, poses = mono_synthetic.render_sequence(cfg, REALTIME_FRAMES)
+    frames, poses = frames[:REALTIME_RUN], poses[:REALTIME_RUN]
     frames = [np.clip(f, 0, 255).astype(np.uint8) for f in frames]
     gt = {i / 30.0: (-T[:3, :3].T @ T[:3, 3]).astype(np.float64)
           for i, T in enumerate(poses)}
     n_warm = REALTIME_CLASSIC + REALTIME_WARM
-    n_timed = REALTIME_FRAMES - n_warm
+    n_timed = REALTIME_RUN - n_warm
 
     def items(lo, hi):
         return ((frames[i], i / 30.0) for i in range(lo, hi))
@@ -1189,7 +1224,7 @@ def realtime_phase(torch, kernels, card, classic_frame_ms: float) -> dict:
                 items(REALTIME_CLASSIC, n_warm), depth=2):
             pass
         dt, n_ok = timed(slam.track_monocular_pipelined(
-            items(n_warm, REALTIME_FRAMES), depth=2), slam)
+            items(n_warm, REALTIME_RUN), depth=2), slam)
         slam.shutdown()
     launches = dict(kernels.LAUNCHES)
     tr = slam.tracker
@@ -1256,7 +1291,7 @@ def realtime_phase(torch, kernels, card, classic_frame_ms: float) -> dict:
         for i in range(n_warm):
             slam_s.track_monocular(frames[i], i / 30.0)
         dt_s, n_ok_s = timed(slam_s.track_monocular_stream(
-            items(n_warm, REALTIME_FRAMES)), slam_s)
+            items(n_warm, REALTIME_RUN)), slam_s)
         slam_s.shutdown()
     launches_s = dict(kernels.LAUNCHES)
     err_s = ate(slam_s)
@@ -1963,7 +1998,7 @@ def multiseq_phase(torch, kernels, check_kernel_b, card) -> dict:
 
 def long_run_phase(torch, kernels, card) -> tuple:
     """Phase 13a (see the module docstring); returns (its numbers, the
-    System). Spies set in this function on local_ba.bundle_adjust /
+    System, the solver inputs it captured). Spies set in this function on local_ba.bundle_adjust /
     bundle_adjust_cg (each global-BA chunk: solver and keyframes),
     GBARunner._solve and take_result (each solve, each applied result),
     pose_graph.optimize_sim3 and optimize_essential_graph (the inputs of
@@ -2120,7 +2155,7 @@ def long_run_phase(torch, kernels, card) -> tuple:
         end = torch.cuda.Event(enable_timing=True)
         torch.cuda.synchronize()
         start.record()
-        fn()
+        captured[name + "_result"] = fn()     # phase 14d's reference
         end.record()
         torch.cuda.synchronize()
         call_ms = start.elapsed_time(end)
@@ -2159,7 +2194,7 @@ def long_run_phase(torch, kernels, card) -> tuple:
         loop_stats=s["loop_stats"], gba_solves=solves, gba_applied_C=applied,
         peak_device_bytes=peak_bytes, map_bytes=map_bytes,
         map_bytes_per_keyframe=map_bytes / max(n_kf, 1), save_ms=save_ms,
-        solves=timed, wall_s=wall_s, launches=launches), slam
+        solves=timed, wall_s=wall_s, launches=launches), slam, captured
 
 
 def viewer_phase(torch, kernels, slam, card) -> dict:
@@ -2262,6 +2297,497 @@ def viewer_phase(torch, kernels, slam, card) -> dict:
     if not any(n > 50 for n in drawn):
         fail("ARDemo drew no cube on a tracked frame")
     check_build_launches("the AR demo", launches, builds.n)
+    return out
+
+
+class ExtractCount:
+    """Counts ORBExtractor.extract calls while active: each extraction,
+    at any batch, launches kernel A and B's describe mode once (the
+    front-end step extracts without a frame build)."""
+
+    def __init__(self, extractor_mod):
+        self.n = 0
+        self._cls = extractor_mod.ORBExtractor
+        self._orig = None
+
+    def __enter__(self):
+        orig = self._orig = self._cls.extract
+
+        def counted(ex, *a, **kw):
+            self.n += 1
+            return orig(ex, *a, **kw)
+        self._cls.extract = counted
+        return self
+
+    def __exit__(self, *exc):
+        self._cls.extract = self._orig
+
+
+def rgbd_config():
+    """Phase 9's RGB-D camera: 640x480, bf 40, DepthMapFactor 5000."""
+    from orb_slam_system_tpu_torch.config import (CameraConfig, ORBConfig,
+                                                  Sensor, SlamConfig)
+    from orb_slam_system_tpu_torch.drivers import rgbd_synthetic
+    W, H = 640, 480
+    cam = CameraConfig(fx=520.0, fy=520.0, cx=W / 2, cy=H / 2, fps=30.0,
+                       width=W, height=H, bf=40.0)
+    # TUM's ThDepth 40 in baseline units, given in metres so that the JAX
+    # package (which stores the number raw) sees the same threshold.
+    return SlamConfig(camera=cam, orb=ORBConfig(n_features=1000),
+                      sensor=Sensor.RGBD, th_depth=40.0 * 40.0 / 520.0,
+                      depth_map_factor=rgbd_synthetic.DEPTH_MAP_FACTOR)
+
+
+def count_rows(path: str) -> int:
+    with open(path) as f:
+        return sum(1 for line in f if line.strip())
+
+
+def run_node(torch, kernels, label: str, mod, argv, script, work: str):
+    """Phase 14a: drivers/<node>.main over a ReplayRospy of `script` in a
+    folder of its own, the counters set to 0 before it and read after it,
+    and A and B's describe mode checked once per frame build. The node's
+    System is recorded by a subclass set in its module for the call.
+    Returns (the System, its numbers, its folder)."""
+    from orb_slam_system_tpu_torch.dataio.ros_replay import ImageMsg, ReplayRospy
+    from orb_slam_system_tpu_torch.models import frame as frame_mod
+    wd = os.path.join(work, label)
+    os.makedirs(wd)
+    made, cls = [], mod.System
+
+    class Recorded(cls):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            made.append(self)
+    rospy = ReplayRospy(script)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    mod.System = Recorded
+    cwd = os.getcwd()
+    t0 = time.perf_counter()
+    try:
+        os.chdir(wd)
+        with BuildCount(frame_mod) as builds:
+            rc = mod.main(argv, rospy_module=rospy, image_cls=ImageMsg)
+    finally:
+        os.chdir(cwd)
+        mod.System = cls
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    if rc != 0:
+        fail(f"{label} exited {rc}")
+    check_build_launches(label, launches, builds.n)
+    slam = made[0]
+    recs = slam.telemetry.records
+    return slam, dict(node=rospy.node_name, messages=len(script),
+                      frames=len(recs), builds=builds.n, launches=launches,
+                      wall_s=wall_s, async_mapping=slam.async_mapping,
+                      track_ms_median=statistics.median(
+                          r["track_ms"] for r in recs) if recs else None), wd
+
+
+def bridge_phase(torch, kernels, card, phase5_track_ms) -> dict:
+    """Phase 14 a-c (see the module docstring); returns its numbers.
+    phase5_track_ms: phase 5's track ms per frame, in order."""
+    import shutil
+
+    from orb_slam_system_tpu_torch.config import (Sensor, TrackingState,
+                                                  load_settings,
+                                                  save_settings_yaml)
+    from orb_slam_system_tpu_torch.dataio import trajectory as traj_io
+    from orb_slam_system_tpu_torch.dataio.ros_replay import ImageMsg
+    from orb_slam_system_tpu_torch.dataio.synthetic import (
+        PlanarSceneRenderer, make_texture, orbit_trajectory)
+    from orb_slam_system_tpu_torch.drivers import (live_camera, mono_synthetic,
+                                                   ros_mono, ros_mono_ar,
+                                                   ros_rgbd, ros_stereo,
+                                                   stereo_synthetic,
+                                                   video_slam)
+    from orb_slam_system_tpu_torch.models import frame as frame_mod
+    from orb_slam_system_tpu_torch.models.system import System
+    from orb_slam_system_tpu_torch.models.viewer import encode_png
+    from orb_slam_system_tpu_torch.utils import warmup
+
+    OK = TrackingState.OK
+    root = os.path.dirname(os.path.abspath(__file__))
+    cfg = mono_synthetic.make_config(640, 480, 1000)
+    frames, poses = mono_synthetic.render_sequence(cfg, SYSTEM_FRAMES)
+    u8 = [np.clip(f, 0, 255).astype(np.uint8) for f in frames]
+    out: dict = {}
+    with tempfile.TemporaryDirectory() as work:
+        settings = os.path.join(work, "tum_synthetic.yaml")
+        save_settings_yaml(cfg, settings)
+
+        # 14a. ros_mono over 30 of phase 5's renders.
+        n = ROS_MONO_FRAMES
+        slam, r, wd = run_node(
+            torch, kernels, "ros_mono", ros_mono, ["none", settings],
+            [("/camera/image_raw", ImageMsg.mono8(f, i / 30.0))
+             for i, f in enumerate(frames[:n])], work)
+        recs = slam.telemetry.records
+        states = [x["state"] for x in recs]
+        init_at = states.index(int(OK)) if int(OK) in states else None
+        post = states[init_at + 1:] if init_at is not None else []
+        gt = {i / 30.0: (-T[:3, :3].T @ T[:3, 3]).astype(np.float64)
+              for i, T in enumerate(poses[:n])}
+        ate = traj_io.ate_rmse(
+            traj_io.frame_poses(slam.arena, slam.tracker.trajectory), gt)
+        r.update(init_frame=init_at, tracked_share=(
+            sum(s == int(OK) for s in post) / max(len(post), 1)),
+            keyframes=slam.arena.n_keyframes(), ate_cm=100 * ate,
+            kf_rows=count_rows(os.path.join(wd, "KeyFrameTrajectory.txt")),
+            state=slam.get_tracking_state().name)
+        out["ros_mono"] = r
+        print(f"ros_mono (node {r['node']}, async mapper {r['async_mapping']})"
+              f": {n} mono8 messages of phase 5's 640x480 orbit, initialized "
+              f"at frame {init_at}, {100 * r['tracked_share']:.1f}% tracked "
+              f"after it, {r['keyframes']} keyframes, {r['kf_rows']} "
+              f"KeyFrameTrajectory.txt rows, ATE (Sim3) {r['ate_cm']:.3f} cm, "
+              f"state {r['state']}; track ms median "
+              f"{r['track_ms_median']:.3f}, {r['wall_s']:.1f} s; launches "
+              f"{r['launches']}; {card}", flush=True)
+        if slam.get_tracking_state() != OK:
+            fail(f"ros_mono ends {r['state']}, not OK")
+        if r["tracked_share"] < MIN_TRACKED_SHARE:
+            fail(f"ros_mono tracked {100 * r['tracked_share']:.1f}% after "
+                 f"initialization")
+        if r["kf_rows"] < 3:
+            fail(f"ros_mono wrote {r['kf_rows']} keyframe rows")
+        if not ate < MAX_ATE_M:
+            fail(f"ros_mono ATE {r['ate_cm']:.3f} cm >= {100 * MAX_ATE_M:g} cm")
+
+        # ros_stereo over phase 8's first pairs, the right stamps jittered.
+        kitti = os.path.join(root, "orb_slam_system_tpu_torch", "settings",
+                             "kitti00-02.yaml")
+        scfg = load_settings(kitti, Sensor.STEREO)
+        pairs, _ = stereo_synthetic.render_pairs(scfg, STEREO_FRAMES,
+                                                 TEX_SCALE)
+        rng = np.random.default_rng(0)
+        script = []
+        for i, (left, right) in enumerate(pairs[:ROS_FRAMES]):
+            t = i / 10.0
+            script.append(("/camera/left/image_raw", ImageMsg.mono8(left, t)))
+            script.append(("/camera/right/image_raw", ImageMsg.mono8(
+                right, t + rng.uniform(-0.004, 0.004))))
+        slam, r, wd = run_node(torch, kernels, "ros_stereo", ros_stereo,
+                               ["none", kitti, "false"], script, work)
+        r.update(paired=len(slam.tracker.trajectory),
+                 state=slam.get_tracking_state().name,
+                 rows=count_rows(os.path.join(wd, "CameraTrajectory.txt")),
+                 keyframes=slam.arena.n_keyframes(),
+                 points=slam.arena.n_points())
+        out["ros_stereo"] = r
+        print(f"ros_stereo (node {r['node']}): {ROS_FRAMES} KITTI-width pairs "
+              f"(1241x376), right stamps within 4 ms, {r['paired']} paired, "
+              f"state {r['state']}, {r['keyframes']} keyframes, {r['points']} "
+              f"points, {r['rows']} CameraTrajectory.txt rows; track ms "
+              f"median {r['track_ms_median']:.3f}, {r['wall_s']:.1f} s; "
+              f"launches {r['launches']}; {card}", flush=True)
+        if r["paired"] != ROS_FRAMES or r["rows"] != ROS_FRAMES:
+            fail(f"ros_stereo paired {r['paired']} and wrote {r['rows']} rows "
+                 f"for {ROS_FRAMES} pairs")
+        if slam.get_tracking_state() != OK:
+            fail(f"ros_stereo ends {r['state']}, not OK")
+
+        # ros_rgbd over phase 9's first frames, depth as 32FC1.
+        rcfg = rgbd_config()
+        rset = os.path.join(work, "rgbd.yaml")
+        save_settings_yaml(rcfg, rset)
+        cam = rcfg.camera
+        rr = PlanarSceneRenderer(cam.K, cam.width, cam.height,
+                                 texture=make_texture(size=2048, block=8,
+                                                      seed=7),
+                                 tex_scale=TEX_SCALE)
+        rposes = orbit_trajectory(RGBD_FRAMES + LOCALIZE_FRAMES, radius=0.35,
+                                  depth=-2.0, tilt=0.3)
+        script = []
+        for i, T in enumerate(rposes[:ROS_FRAMES]):
+            depth = (rr.render_depth(T) * rcfg.depth_map_factor).astype(
+                np.float32)
+            script.append(("/camera/rgb/image_raw",
+                           ImageMsg.mono8(rr.render(T), i / 30.0)))
+            script.append(("/camera/depth_registered/image_raw",
+                           ImageMsg.from_array(depth, i / 30.0, "32FC1")))
+        slam, r, wd = run_node(torch, kernels, "ros_rgbd", ros_rgbd,
+                               ["none", rset], script, work)
+        r.update(state=slam.get_tracking_state().name,
+                 frames_ok=sum(x["state"] == int(OK)
+                               for x in slam.telemetry.records),
+                 rows={name: count_rows(os.path.join(wd, name))
+                       for name in ("KeyFrameTrajectory.txt",
+                                    "CameraTrajectory.txt")})
+        out["ros_rgbd"] = r
+        print(f"ros_rgbd (node {r['node']}): {ROS_FRAMES} frames with 32FC1 "
+              f"depth, {r['frames_ok']} OK, state {r['state']}, trajectory "
+              f"rows {r['rows']}; track ms median "
+              f"{r['track_ms_median']:.3f}, {r['wall_s']:.1f} s; launches "
+              f"{r['launches']}; {card}", flush=True)
+        if slam.get_tracking_state() != OK:
+            fail(f"ros_rgbd ends {r['state']}, not OK")
+        if not all(r["rows"].values()):
+            fail(f"ros_rgbd trajectory files {r['rows']}")
+
+        # ros_mono_ar over 10 of phase 5's renders.
+        ar_dir = os.path.join(work, "ar_out")
+        slam, r, _ = run_node(
+            torch, kernels, "ros_ar", ros_mono_ar,
+            ["none", settings, f"--out_dir={ar_dir}"],
+            [("/camera/image_raw", ImageMsg.mono8(f, i / 30.0))
+             for i, f in enumerate(frames[:ROS_FRAMES])], work)
+        r["overlays"] = len(os.listdir(ar_dir)) if os.path.isdir(ar_dir) else 0
+        out["ros_ar"] = r
+        print(f"ros_mono_ar (node {r['node']}): {ROS_FRAMES} messages, "
+              f"{r['overlays']} overlays written; {r['wall_s']:.1f} s; "
+              f"launches {r['launches']}; {card}", flush=True)
+        if r["overlays"] != ROS_FRAMES:
+            fail(f"ros_mono_ar wrote {r['overlays']} overlays for "
+                 f"{ROS_FRAMES} messages")
+
+        # 14b. live_camera.run on a capture serving BGR renders.
+        class Capture:
+            def __init__(self):
+                self.i, self.released = 0, False
+
+            def read(self):
+                if self.i >= len(u8):
+                    return False, None
+                g = u8[self.i]
+                self.i += 1
+                return True, np.stack([g, g, g], axis=-1)
+
+            def release(self):
+                self.released = True
+        cap = Capture()
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        with BuildCount(frame_mod) as builds:
+            slam = System(cfg, device="cuda", async_mapping=True)
+            n_live = live_camera.run(slam, cap, max_frames=LIVE_FRAMES,
+                                     report_every=0)
+            state = slam.get_tracking_state()
+            slam.shutdown()
+        cap.release()
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+        check_build_launches("live_camera", launches, builds.n)
+        recs = slam.telemetry.records
+        out["live"] = dict(frames=n_live, read=cap.i, state=state.name,
+                           keyframes=slam.arena.n_keyframes(),
+                           wall_s=time.perf_counter() - t0,
+                           chain_stats=dict(slam.tracker.chain_stats),
+                           track_ms_median=statistics.median(
+                               x["track_ms"] for x in recs),
+                           builds=builds.n, launches=launches)
+        print(f"live_camera.run (pipelined, async mapper): {n_live} BGR "
+              f"frames read {cap.i}, state {state.name}, "
+              f"{out['live']['keyframes']} keyframes, chain "
+              f"{out['live']['chain_stats']}, {out['live']['wall_s']:.1f} s, "
+              f"released {cap.released}; launches {launches}; {card}",
+              flush=True)
+        if n_live != LIVE_FRAMES or state != OK:
+            fail(f"live_camera tracked {n_live} of {LIVE_FRAMES}, ends "
+                 f"{state.name}")
+
+        # video_slam.main on a folder of PNGs and one .txt file.
+        src = os.path.join(work, "video")
+        os.makedirs(src)
+        for i, f in enumerate(u8[:VIDEO_FRAMES]):
+            with open(os.path.join(src, f"{i:04d}.png"), "wb") as fh:
+                fh.write(encode_png(f))
+        with open(os.path.join(src, "notes.txt"), "w") as fh:
+            fh.write("not a frame\n")
+        made, cls = [], video_slam.System
+
+        class Recorded(cls):
+            def __init__(self, *a, **kw):
+                super().__init__(*a, **kw)
+                made.append(self)
+        vout = os.path.join(work, "video_out")
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        video_slam.System = Recorded
+        t0 = time.perf_counter()
+        try:
+            with BuildCount(frame_mod) as builds:
+                rc = video_slam.main(["none", settings, src, "--out-dir", vout])
+        finally:
+            video_slam.System = cls
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+        check_build_launches("video_slam", launches, builds.n)
+        slam = made[0]
+        rows = count_rows(os.path.join(vout, "KeyFrameTrajectory.txt"))
+        ffmpeg = shutil.which("ffmpeg")
+        out["video"] = dict(
+            frames=len(slam.telemetry.records), rows=rows,
+            state=slam.get_tracking_state().name,
+            wall_s=time.perf_counter() - t0, builds=builds.n,
+            launches=launches, ffmpeg=ffmpeg,
+            track_ms_median=statistics.median(
+                x["track_ms"] for x in slam.telemetry.records))
+        if rc != 0 or out["video"]["frames"] != VIDEO_FRAMES or rows < 1:
+            fail(f"video_slam: rc {rc}, {out['video']['frames']} frames, "
+                 f"{rows} trajectory rows")
+        if ffmpeg:
+            clip = os.path.join(work, "clip.mkv")
+            subprocess.run([ffmpeg, "-loglevel", "error", "-framerate", "30",
+                            "-i", os.path.join(src, "%04d.png"), "-c:v",
+                            "ffv1", "-pix_fmt", "gray", clip], check=True)
+            got = list(video_slam.iter_video(clip, 30.0, 640, 480))
+            out["video"]["iter_video_frames"] = len(got)
+            if len(got) != VIDEO_FRAMES or not np.array_equal(
+                    got[0][0], u8[0].astype(np.float32)):
+                fail(f"iter_video read {len(got)} frames of {VIDEO_FRAMES}, "
+                     f"frame 0 not the PNG's")
+        print(f"video_slam.main: {out['video']['frames']} PNG frames read "
+              f"(notes.txt skipped), state {out['video']['state']}, {rows} "
+              f"KeyFrameTrajectory.txt rows, {out['video']['wall_s']:.1f} s; "
+              f"ffmpeg on PATH: {ffmpeg or 'no'}, iter_video "
+              f"{'ran' if ffmpeg else 'not run'}; launches {launches}; {card}",
+              flush=True)
+
+    # 14c. System(prewarm=True) on phase 5's config, then its first frames.
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    with BuildCount(frame_mod) as builds:
+        warmup.PREWARM_FRAMES = WARM_FRAMES
+        slam = System(cfg, device="cuda", prewarm=True)
+        t_warm = time.perf_counter() - t0
+        for i in range(WARM_AFTER):
+            slam.track_monocular(frames[i], i / 30.0)
+        slam.shutdown()
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    check_build_launches("the warm pass", launches, builds.n)
+    after = [round(x["track_ms"], 3) for x in slam.telemetry.records]
+    before = [round(x, 3) for x in phase5_track_ms[:WARM_AFTER]]
+    out["warm"] = dict(frames_per_mode=WARM_FRAMES, seconds=slam.warm_seconds,
+                       construct_s=t_warm, track_ms_after=after,
+                       phase5_track_ms=before, builds=builds.n,
+                       launches=launches)
+    print(f"warm pass: System(prewarm=True) at 640x480, {WARM_FRAMES} frames "
+          f"a mode: {slam.warm_seconds} s ({t_warm:.1f} s to construct); "
+          f"track ms of the first {WARM_AFTER} frames after it {after}, "
+          f"phase 5's first {WARM_AFTER} {before}; launches {launches}; "
+          f"{card}", flush=True)
+    if set(slam.warm_seconds) != {"sequential+sync", "pipelined+async"}:
+        fail(f"the warm pass ran {slam.warm_seconds}")
+    return out
+
+
+def sharded_phase(torch, kernels, card, captured, solves13) -> dict:
+    """Phase 14d (see the module docstring): an in-process NCCL group of
+    one rank on card 0, the sharded global BA and essential graph on 13a's
+    inputs against their unsharded solves, then multiseq.dryrun on it (and
+    across the cards through dryrun_multichip where there are several).
+    captured: 13a's captured inputs; solves13: 13a's timed solves."""
+    import torch.distributed as dist
+
+    from orb_slam_system_tpu_torch.ops import extractor as extractor_mod
+    from orb_slam_system_tpu_torch.parallel import multiseq
+    from orb_slam_system_tpu_torch.parallel.ba_dist import (
+        bundle_adjust_cg_sharded)
+    from orb_slam_system_tpu_torch.parallel.pose_graph_dist import (
+        optimize_essential_graph_sharded)
+    from orb_slam_system_tpu_torch.solvers import local_ba
+
+    n_cards = torch.cuda.device_count()
+    out: dict = {"cards": n_cards, "ranks": 1}
+    with tempfile.TemporaryDirectory() as d:
+        dist.init_process_group(
+            "nccl", store=dist.FileStore(os.path.join(d, "store"), 1),
+            rank=0, world_size=1, device_id=torch.device("cuda", 0))
+        try:
+            # The unsharded solves' call ms and kernels are 13a's, on the
+            # same inputs; the global BA runs once more for the bit
+            # comparison, the essential graph's 13a result stands in.
+            a, kw = captured["pcg_chunk"]
+            shapes = [tuple(a[0].Tcw.shape), tuple(a[0].points.shape),
+                      tuple(a[0].e_cam.shape)]
+
+            def shard():
+                return bundle_adjust_cg_sharded(*a, **kw)
+            out["ba_bit_equal"] = all(torch.equal(x, y) for x, y in zip(
+                local_ba.bundle_adjust_cg(*a, **kw), shard()))
+            d_ms, n_k = stage_device_ms(torch, shard, reps=3, required=False)
+            out["ba_sharded"] = dict(call_ms=cuda_ms(torch, shard, reps=3),
+                                     kernels=n_k, device_ms=d_ms,
+                                     shapes=shapes)
+            plain = solves13["pcg_chunk"]
+            print(f"sharded global BA on 13a's PCG chunk {shapes}, NCCL, 1 "
+                  f"rank: call {out['ba_sharded']['call_ms']:.3f} ms, "
+                  f"{n_k} kernels, {ms_text(d_ms)} device; unsharded (13a) "
+                  f"call {plain['call_ms']:.3f} ms, {plain['kernels']} "
+                  f"kernels, {ms_text(plain['device_ms'])} device; bit-equal "
+                  f"{out['ba_bit_equal']}; {card}", flush=True)
+            if not out["ba_bit_equal"]:
+                fail("the sharded global BA at one rank differs from "
+                     "bundle_adjust_cg")
+
+            ca, ckw = captured["optimize_essential_graph"]
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            start.record()
+            got = optimize_essential_graph_sharded(*ca, **ckw)
+            end.record()
+            torch.cuda.synchronize()
+            out["eg_sharded"] = dict(call_ms=start.elapsed_time(end),
+                                     K=int(ca[0].shape[0]),
+                                     E=int(ca[5].shape[0]))
+            prof = profile_device(
+                torch, "sharded essential graph, one profiled call",
+                lambda: optimize_essential_graph_sharded(*ca, **ckw),
+                out["eg_sharded"]["call_ms"])
+            out["eg_sharded"]["kernels"], out["eg_sharded"]["device_ms"] = (
+                (None, None) if prof is None else prof[:2])
+            plain = solves13["optimize_essential_graph"]
+            out["eg_bit_equal"] = all(torch.equal(x, y) for x, y in zip(
+                captured["optimize_essential_graph_result"], got))
+            print(f"sharded essential graph on 13a's last inputs "
+                  f"(K = {out['eg_sharded']['K']}, E = {out['eg_sharded']['E']}"
+                  f"), NCCL, 1 rank: call {out['eg_sharded']['call_ms']:.1f} "
+                  f"ms, {out['eg_sharded']['kernels']} kernels; unsharded "
+                  f"(13a) call {plain['call_ms']:.1f} ms, {plain['kernels']} "
+                  f"kernels; bit-equal {out['eg_bit_equal']}; {card}",
+                  flush=True)
+            if not out["eg_bit_equal"]:
+                fail("the sharded essential graph at one rank differs from "
+                     "optimize_essential_graph")
+
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            with ExtractCount(extractor_mod) as ex:
+                n_in, n_match = multiseq.dryrun(1)
+            torch.cuda.synchronize()
+            launches = dict(kernels.LAUNCHES)
+            out["dryrun"] = dict(n_inliers=n_in, n_matched=n_match,
+                                 extractions=ex.n, launches=launches,
+                                 wall_s=time.perf_counter() - t0)
+        finally:
+            dist.destroy_process_group()
+    print(f"multiseq.dryrun(1) on the NCCL group: the dp x sp step, the "
+          f"sharded essential graph and global BA, and the 2-System "
+          f"MultiSystem OK; n_inliers {n_in}, n_matched {n_match}; "
+          f"{ex.n} extractions, launches {launches}, "
+          f"{out['dryrun']['wall_s']:.1f} s; {card}", flush=True)
+    for name, want in (("fast_score_nms", ex.n), ("gather_blur_describe", ex.n),
+                       ("brief_pack", 0), ("gather_blur_moments", 0),
+                       ("gather_patches", 0)):
+        if launches[name] != want:
+            fail(f"dryrun: kernel {name} launched {launches[name]} times for "
+                 f"{ex.n} extractions")
+    if n_cards > 1:
+        t0 = time.perf_counter()
+        multiseq.dryrun_multichip(n_cards, "nccl")
+        out["dryrun_multichip_s"] = time.perf_counter() - t0
+        out["ranks"] = n_cards
+        print(f"dryrun_multichip({n_cards}, nccl) OK in "
+              f"{out['dryrun_multichip_s']:.1f} s", flush=True)
     return out
 
 
@@ -2632,6 +3158,7 @@ def main() -> None:
     system_launches = dict(kernels.LAUNCHES)
     classic_frame_ms = 1e3 * slam.timing_report()["median_s"]
     recs = slam.telemetry.records
+    phase5_track_ms = [r["track_ms"] for r in recs]
     ok_state = int(TrackingState.OK)
     init_at = next((i for i, r in enumerate(recs) if r["state"] == ok_state),
                    None)
@@ -2720,9 +3247,14 @@ def main() -> None:
     phases_done(12)
     # 13. The long run, then the viewer and AR; the counters count only each
     # run.
-    long_run, long_slam = long_run_phase(torch, kernels, card)
+    long_run, long_slam, captured = long_run_phase(torch, kernels, card)
     view = viewer_phase(torch, kernels, long_slam, card)
     phases_done(13)
+    # 14. The ROS nodes, the live and video drivers, the warm pass, then the
+    # sharded solvers; the counters count only each run.
+    bridge = bridge_phase(torch, kernels, card, phase5_track_ms)
+    sharded = sharded_phase(torch, kernels, card, captured, long_run["solves"])
+    phases_done(14)
     for name, key in (("fast_score_nms", "kernel_a"),
                       ("gather_blur_moments", "kernel_b")):
         for shape, ph in (("at_stereo_shape", stereo),
@@ -2753,7 +3285,11 @@ def main() -> None:
                 "seq_map_localization": sequences["map"]["launches"],
                 "multiseq": multiseq["full"]["launches"],
                 "multiseq_frontend": multiseq["frontend"]["launches"],
-                "long_run": long_run["launches"], "ar": view["ar_launches"]}
+                "long_run": long_run["launches"], "ar": view["ar_launches"],
+                **{k: bridge[k]["launches"] for k in (
+                    "ros_mono", "ros_stereo", "ros_rgbd", "ros_ar", "live",
+                    "video", "warm")},
+                "dryrun": sharded["dryrun"]["launches"]}
     counter = dict(fast_score_nms="fast_score_nms",
                    gather_blur_moments="gather_blur_describe",
                    brief_pack="brief_pack", gather_patches="gather_patches")
@@ -2764,6 +3300,8 @@ def main() -> None:
     print(json.dumps({"sequences": sequences}, default=str), flush=True)
     print(json.dumps({"multiseq": multiseq}, default=str), flush=True)
     print(json.dumps({"long_run": long_run, "viewer": view}, default=str),
+          flush=True)
+    print(json.dumps({"bridge": bridge, "sharded": sharded}, default=str),
           flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": [

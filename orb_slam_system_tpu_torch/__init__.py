@@ -19,7 +19,13 @@ streaming mode and the pipelined device-state chain step
 readers (dataio/datasets.py) over the native PNG/PNM decoder (native/,
 C++ built with g++ at first use), the TUM, KITTI and EuRoC drivers with
 drivers/run_dataset.py, and map save/load (mapping/serialize.py,
-System.save_map / load_map).
+System.save_map / load_map). The multi-sequence mode (parallel/), the long
+runs, the viewer and the AR overlay. The ROS bridge and its four nodes
+(dataio/ros_bridge.py, drivers/ros_*.py), the live-camera and video
+drivers, the warm pass (utils/warmup.py, System(prewarm=True)), and the
+sharded solvers over torch.distributed (parallel/ba_dist.py,
+parallel/pose_graph_dist.py, the dp x sp front-end step and its dry run):
+with them the port does everything the JAX package does.
 """
 
 __version__ = "0.1.0"

@@ -7,7 +7,7 @@ from __future__ import annotations
 import argparse
 import os
 import time
-from typing import Callable, List, Sequence
+from typing import Callable, List, Optional, Sequence
 
 import numpy as np
 
@@ -15,18 +15,29 @@ from orb_slam_system_tpu_torch.native import PrefetchLoader
 
 
 def parse_args(doc: str, positional: Sequence[str], argv=None):
-    """The reference drivers' positional arguments, then --no-realtime
-    (do not pace frames to the dataset's timestamps), --device (cuda by
-    default; cpu runs the plain PyTorch paths) and --out-dir (where the
-    trajectory files go, the working directory by default). A vocabulary
-    path of "none" self-trains the vocabulary from the map."""
+    """The dataset drivers' command line: parse_command's, then
+    --no-realtime (do not pace frames to the dataset's timestamps) and
+    --out-dir (where the trajectory files go, the working directory by
+    default)."""
+    def flags(ap):
+        ap.add_argument("--no-realtime", action="store_true")
+        ap.add_argument("--out-dir", default=".")
+    return parse_command(doc, positional, argv, flags)
+
+
+def parse_command(doc: str, positional: Sequence[str], argv=None,
+                  flags: Optional[Callable] = None):
+    """The reference drivers' positional arguments, --device (cuda by
+    default; cpu runs the plain PyTorch paths) and whatever `flags(parser)`
+    adds. args.vocabulary is None for a vocabulary path of "none", which
+    self-trains the vocabulary from the map."""
     ap = argparse.ArgumentParser(
         description=doc, formatter_class=argparse.RawDescriptionHelpFormatter)
     for name in positional:
         ap.add_argument(name)
-    ap.add_argument("--no-realtime", action="store_true")
     add_device_arg(ap)
-    ap.add_argument("--out-dir", default=".")
+    if flags is not None:
+        flags(ap)
     args = ap.parse_args(argv)
     voc = args.path_to_vocabulary
     args.vocabulary = None if voc.lower() == "none" else voc

@@ -38,6 +38,9 @@ order is System._lock > arena.correction_lock > arena.lock. The mapper
 worker and the global-BA thread queue their device work on the default
 CUDA stream, as tracking does, so the card runs it in one order.
 
+System(..., prewarm=True) runs the warm pass (utils/warmup.py) at its own
+config before its first frame, as the JAX System does.
+
 Map persistence: save_map / load_map (mapping/serialize.py's .npz, read
 by both packages); a loaded map is relocalized against, by default in
 localization mode. The viewer (use_viewer; models/viewer.py) shows each
@@ -74,12 +77,22 @@ class System:
                  sensor: Sensor = Sensor.MONOCULAR, device="cuda",
                  vocabulary_path: Optional[str] = None,
                  sync_gba: bool = False, async_mapping: bool = False,
-                 use_viewer: bool = False, viewer_port: Optional[int] = None):
+                 use_viewer: bool = False, viewer_port: Optional[int] = None,
+                 prewarm: bool = False):
         set_f32_policy()
         self.sensor = Sensor(sensor)
         self.cfg = (load_settings(settings, self.sensor)
                     if isinstance(settings, str) else settings)
         self.device = torch.device(device)
+        # The warm pass (utils/warmup.py) before this System's first frame:
+        # warmup.PREWARM_FRAMES of a synthetic orbit at this config's
+        # camera and ORB settings through two throwaway Systems;
+        # {mode: seconds}.
+        self.warm_seconds: dict = {}
+        if prewarm:
+            from orb_slam_system_tpu_torch.utils import warmup
+            self.warm_seconds = warmup.warm(self.cfg, warmup.PREWARM_FRAMES,
+                                            verbose=False, device=device)
         self.vocabulary = (Vocabulary.load(vocabulary_path)
                            if vocabulary_path else None)
         self.arena = MapArena()

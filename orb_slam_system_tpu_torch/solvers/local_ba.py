@@ -34,6 +34,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from orb_slam_system_tpu_torch.utils.collectives import all_sum
 from orb_slam_system_tpu_torch.utils.lie import se3_exp
 
 CHI2_MONO = 5.991
@@ -214,12 +215,18 @@ def bundle_adjust(prob: BAProblem, fx, fy, cx, cy, n_iters: int = 10,
 
 
 def bundle_adjust_cg(prob: BAProblem, fx, fy, cx, cy, n_iters: int = 10,
-                     cg_iters: int = 40):
+                     cg_iters: int = 40, group=None):
     """LM bundle adjustment whose reduced camera system is solved by
     preconditioned CG, with the matvec assembled from per-edge blocks (the
     dense [C,P,6,3] cross blocks of `bundle_adjust` are never formed): O(E)
     per CG iteration, for global BA over large maps. Huber-robust, as
-    bundle_adjust by default; returns (Tcw_new, points_new)."""
+    bundle_adjust by default; returns (Tcw_new, points_new).
+
+    group: a torch.distributed group over whose ranks the edge list is
+    split (cameras and points replicated; parallel/ba_dist.py). The robust
+    costs, Hcc, Hpp, gc, gp and both halves of the Schur matvec are summed
+    over it where the JAX solver psums them (JAX local_ba.py:317, 339-346,
+    360, 366), so every rank takes the same steps. None: one process."""
     C = prob.Tcw.shape[0]
     P = prob.points.shape[0]
     dev = prob.points.device
@@ -233,8 +240,9 @@ def bundle_adjust_cg(prob: BAProblem, fx, fy, cx, cy, n_iters: int = 10,
     def cost_at(Tcw, X, xi_all, dX):
         p = prob._replace(Tcw=Tcw, points=X)
         e, _, _, z, is_st = _edge_residuals(xi_all, dX, p, fx, fy, cx, cy)
-        return _robust_cost(e, prob.e_inv_sigma2, prob.e_valid & (z > 0),
-                            True, is_st)[0]
+        return all_sum(_robust_cost(e, prob.e_inv_sigma2,
+                                    prob.e_valid & (z > 0), True, is_st)[0],
+                       group)
 
     def bmv(M, x):
         return (M @ x[..., None])[..., 0]
@@ -256,10 +264,10 @@ def bundle_adjust_cg(prob: BAProblem, fx, fy, cx, cy, n_iters: int = 10,
         Jp_w = Jp * sw[:, None, None]
         e_w = e * sw[:, None]
         JcT, JpT = Jc_w.transpose(1, 2), Jp_w.transpose(1, 2)
-        Hcc = _seg_sum(prob.e_cam, JcT @ Jc_w, C)
-        Hpp = _seg_sum(prob.e_pt, JpT @ Jp_w, P)
-        gc = _seg_sum(prob.e_cam, bmv(JcT, e_w), C)
-        gp = _seg_sum(prob.e_pt, bmv(JpT, e_w), P)
+        Hcc = all_sum(_seg_sum(prob.e_cam, JcT @ Jc_w, C), group)
+        Hpp = all_sum(_seg_sum(prob.e_pt, JpT @ Jp_w, P), group)
+        gc = all_sum(_seg_sum(prob.e_cam, bmv(JcT, e_w), C), group)
+        gp = all_sum(_seg_sum(prob.e_pt, bmv(JpT, e_w), P), group)
         Hcc_d = Hcc + lam * eye6 * torch.diagonal(
             Hcc, dim1=1, dim2=2).clamp_min(1e-6)[:, :, None]
         Hpp_d = Hpp + lam * eye3 * torch.diagonal(
@@ -270,11 +278,15 @@ def bundle_adjust_cg(prob: BAProblem, fx, fy, cx, cy, n_iters: int = 10,
 
         def A_t(x_c):
             """A^T x: [C,6] -> [P,3] through the per-edge blocks."""
-            return _seg_sum(prob.e_pt, bmv(JpT, bmv(Jc_w, x_c[prob.e_cam])), P)
+            return all_sum(_seg_sum(prob.e_pt,
+                                    bmv(JpT, bmv(Jc_w, x_c[prob.e_cam])), P),
+                           group)
 
         def A_(v_p):
             """A v: [P,3] -> [C,6]."""
-            return _seg_sum(prob.e_cam, bmv(JcT, bmv(Jp_w, v_p[prob.e_pt])), C)
+            return all_sum(_seg_sum(prob.e_cam,
+                                    bmv(JcT, bmv(Jp_w, v_p[prob.e_pt])), C),
+                           group)
 
         def schur_mv(x_c):
             x_c = x_c * fm

@@ -28,6 +28,7 @@ from torch.func import jvp, vmap
 from orb_slam_system_tpu_torch.solvers.local_ba import _seg_sum
 from orb_slam_system_tpu_torch.solvers.sim3 import _project
 from orb_slam_system_tpu_torch.utils import lie
+from orb_slam_system_tpu_torch.utils.collectives import all_sum
 
 TH2_SIM3 = 10.0   # OptimizeSim3's chi2 gate (reference ComputeSim3's th2)
 SIM3_ITERS = 10   # OptimizeSim3's LM iterations per stage
@@ -58,11 +59,17 @@ def _jacobians(f, primals):
 
 def optimize_essential_graph(R0, t0, s0, v_fixed, v_valid, e_i, e_j,
                              e_R, e_t, e_s, e_valid, n_iters: int = 20,
-                             cg_iters: int = 50):
+                             cg_iters: int = 50, group=None):
     """R0 f32[K,3,3], t0 f32[K,3], s0 f32[K]: initial Sim3s (world->cam);
     v_fixed, v_valid bool[K]; e_i, e_j i64[E] vertex indices; e_R, e_t, e_s
     the measurement Sji per edge; e_valid bool[E]. Returns the optimized
-    (R f32[K,3,3], t f32[K,3], s f32[K])."""
+    (R f32[K,3,3], t f32[K,3], s f32[K]).
+
+    group: a torch.distributed group over whose ranks the edge list is
+    split (vertices replicated; parallel/pose_graph_dist.py). The gradient
+    b, the block-Jacobi diagonal, the PCG matvec and the LM costs are
+    summed over it where the JAX solver psums them (JAX pose_graph.py:98,
+    103, 113), so every rank takes the same steps. None: one process."""
     K = R0.shape[0]
     f32 = t0.dtype
     dev = t0.device
@@ -83,17 +90,19 @@ def optimize_essential_graph(R0, t0, s0, v_fixed, v_valid, e_i, e_j,
         Ji = Ji * ew[..., None]
         Jj = Jj * ew[..., None]
         JiT, JjT = Ji.transpose(1, 2), Jj.transpose(1, 2)
-        b = -(_seg_sum(e_i, (JiT @ r[..., None])[..., 0], K)
-              + _seg_sum(e_j, (JjT @ r[..., None])[..., 0], K)) * free
-        Hd = (_seg_sum(e_i, JiT @ Ji, K) + _seg_sum(e_j, JjT @ Jj, K)
+        b = all_sum(-(_seg_sum(e_i, (JiT @ r[..., None])[..., 0], K)
+                      + _seg_sum(e_j, (JjT @ r[..., None])[..., 0], K)),
+                    group) * free
+        Hd = (all_sum(_seg_sum(e_i, JiT @ Ji, K) + _seg_sum(e_j, JjT @ Jj, K),
+                      group)
               + (lam + 1e-6) * eye7)
         Minv = torch.linalg.inv(Hd)
 
         def matvec(x):
             x = x * free
             u = (Ji @ x[e_i][..., None] + Jj @ x[e_j][..., None])   # [E,7,1]
-            y = (_seg_sum(e_i, (JiT @ u)[..., 0], K)
-                 + _seg_sum(e_j, (JjT @ u)[..., 0], K))
+            y = all_sum(_seg_sum(e_i, (JiT @ u)[..., 0], K)
+                        + _seg_sum(e_j, (JjT @ u)[..., 0], K), group)
             return (y + (lam + 1e-6) * x) * free
 
         def precond(x):
@@ -118,7 +127,7 @@ def optimize_essential_graph(R0, t0, s0, v_fixed, v_valid, e_i, e_j,
                                         torch.full_like(rz, 1e-12), rz)
             p = z + beta * p
             rz = rz_new
-        return x, (r * r).sum()
+        return x, all_sum((r * r).sum(), group)
 
     # Reference uses lambdaInit = 1e-16 (:781): effectively pure GN.
     xi = torch.zeros((K, 7), dtype=f32, device=dev)
@@ -126,7 +135,8 @@ def optimize_essential_graph(R0, t0, s0, v_fixed, v_valid, e_i, e_j,
     for _ in range(n_iters):
         dx, cost0 = gn_step(xi, lam)
         xi_new = xi + dx
-        cost1 = ((residuals(xi_new[e_i], xi_new[e_j]) * ew) ** 2).sum()
+        cost1 = all_sum(
+            ((residuals(xi_new[e_i], xi_new[e_j]) * ew) ** 2).sum(), group)
         improved = cost1 < cost0
         xi = torch.where(improved, xi_new, xi)
         lam = torch.where(improved, lam * 0.5, lam * 4.0).clamp(1e-10, 1e6)

@@ -12,11 +12,20 @@ The loop keeps the LM state (xi, lambda, the accept decision) as tensors:
 nothing inside it reads a value back to the host, so on the card the 40
 iterations enqueue without a single synchronization.
 
-`pose_optimization_batch` solves S independent poses with one set of
-launches: torch.func.vmap of `pose_optimization` (the JAX package's
-jax.vmap in parallel/multiseq.py:99-103). The JAX function's `axis_name`
-psum reduces the normal equations over query-row shards of one pose; on
-one card there is one shard, so it has no counterpart here.
+One LM serves both entry points: it runs over any leading axes of the
+inputs. `pose_optimization` solves one pose (no leading axis);
+`pose_optimization_batch` solves S independent poses over a leading axis
+with one set of launches (the JAX package's jax.vmap in
+parallel/multiseq.py:99-103).
+
+The JAX function's `axis_name` psum (JAX pose_opt.py:139, 152-153) is the
+`group` argument here: a pose's edges split over the ranks of a
+torch.distributed group, its H, g and robust costs summed over them
+(utils/collectives.all_sum, nothing when the group is None), so every rank
+solves the same pose. The sums run on the [..., 6, 6] / [..., 6] normal
+equations and [...] costs of every pose at once, once per iteration
+(parallel/multiseq.py's sharded step), since a collective cannot run under
+torch.func.vmap.
 """
 
 from __future__ import annotations
@@ -24,6 +33,7 @@ from __future__ import annotations
 import torch
 
 from orb_slam_system_tpu_torch.utils import lie
+from orb_slam_system_tpu_torch.utils.collectives import all_sum
 from orb_slam_system_tpu_torch.utils.precision import set_f32_policy
 
 CHI2_MONO = 5.991            # reference src/Optimizer.cc:330
@@ -33,39 +43,40 @@ HUBER_DELTA_STEREO = 2.795532  # sqrt(7.815)
 
 
 def _residuals(xi, T0, Xw, obs, obs_ur, bf, fx, fy, cx, cy, with_jac):
-    """e = [obs_uv - pi(X); obs_ur - (u - bf/z)] at pose exp(xi) T0.
-    Returns (e [N,3], J [N,3,6] or None, z [N], is_stereo [N])."""
+    """e = [obs_uv - pi(X); obs_ur - (u - bf/z)] at pose exp(xi) T0, over
+    any leading axes (xi [...,6], T0 [...,4,4], Xw [...,N,3]). Returns
+    (e [...,N,3], J [...,N,3,6] or None, z [...,N], is_stereo [...,N])."""
     T = lie.se3_exp(xi) @ T0
-    Xc = Xw @ T[:3, :3].T + T[:3, 3]
-    x, y, z = Xc.unbind(1)
+    Xc = Xw @ T[..., :3, :3].mT + T[..., None, :3, 3]
+    x, y, z = Xc.unbind(-1)
     zs = torch.where(z.abs() < 1e-9, torch.full_like(z, 1e-9), z)
     inv_z = 1.0 / zs
     u = fx * x * inv_z + cx
     v = fy * y * inv_z + cy
     is_stereo = obs_ur >= 0
     zero = torch.zeros_like(x)
-    e = torch.stack([obs[:, 0] - u, obs[:, 1] - v,
+    e = torch.stack([obs[..., 0] - u, obs[..., 1] - v,
                      torch.where(is_stereo, obs_ur - (u - bf * inv_z), zero)],
-                    dim=1)
+                    dim=-1)
     if not with_jac:
         return e, None, z, is_stereo
     inv_z2 = inv_z * inv_z
     J_proj = torch.stack([
-        torch.stack([fx * inv_z, zero, -fx * x * inv_z2], dim=1),
-        torch.stack([zero, fy * inv_z, -fy * y * inv_z2], dim=1),
-        torch.stack([fx * inv_z, zero, (-fx * x + bf) * inv_z2], dim=1),
-    ], dim=1)                                            # d(u,v,ur)/d(Xc)
+        torch.stack([fx * inv_z, zero, -fx * x * inv_z2], dim=-1),
+        torch.stack([zero, fy * inv_z, -fy * y * inv_z2], dim=-1),
+        torch.stack([fx * inv_z, zero, (-fx * x + bf) * inv_z2], dim=-1),
+    ], dim=-2)                                           # d(u,v,ur)/d(Xc)
     neg_hat = torch.stack([
-        torch.stack([zero, z, -y], dim=1),
-        torch.stack([-z, zero, x], dim=1),
-        torch.stack([y, -x, zero], dim=1),
-    ], dim=1)
+        torch.stack([zero, z, -y], dim=-1),
+        torch.stack([-z, zero, x], dim=-1),
+        torch.stack([y, -x, zero], dim=-1),
+    ], dim=-2)
     eye = torch.eye(3, dtype=Xc.dtype, device=Xc.device).expand_as(neg_hat)
-    J = -(J_proj @ torch.cat([eye, neg_hat], dim=2))   # [N,3,6]
+    J = -(J_proj @ torch.cat([eye, neg_hat], dim=-1))  # [...,N,3,6]
     # (1, 1, 0) made on the device: a tensor built from a host list would
     # be a blocking host->device copy inside every LM iteration.
-    row_mask = (torch.arange(3, device=Xc.device) < 2).to(Xc.dtype)[None, :, None]
-    J = J * torch.where(is_stereo[:, None, None], torch.ones_like(row_mask),
+    row_mask = (torch.arange(3, device=Xc.device) < 2).to(Xc.dtype)[:, None]
+    J = J * torch.where(is_stereo[..., None, None], torch.ones_like(row_mask),
                         row_mask)
     return e, J, z, is_stereo
 
@@ -82,27 +93,52 @@ def _rho(chi2, is_st, use_huber: bool):
 
 def pose_optimization(Tcw0, Xw, obs, inv_sigma2, valid, fx, fy, cx, cy,
                       obs_ur=None, bf=0.0, n_rounds: int = 4,
-                      n_iters: int = 10):
+                      n_iters: int = 10, group=None):
     """Returns (Tcw f32[4,4], inlier bool[N], n_inliers i64 tensor).
 
     valid marks real correspondences; obs_ur (f32[N], -1 mono) adds stereo
-    right-column residuals. Points behind the camera are outliers."""
+    right-column residuals. Points behind the camera are outliers. With a
+    group, this rank's N edges are its share of the pose's (H, g and the
+    costs summed over the group); inlier and n_inliers stay this rank's."""
+    return _lm(Tcw0, Xw, obs, inv_sigma2, valid, fx, fy, cx, cy, obs_ur, bf,
+               n_rounds, n_iters, group)
+
+
+def pose_optimization_batch(Tcw0, Xw, obs, inv_sigma2, valid, fx, fy, cx, cy,
+                            group=None):
+    """pose_optimization of S monocular problems over a leading sequence
+    axis: Tcw0 f32[S,4,4], Xw f32[S,N,3], obs f32[S,N,2], inv_sigma2
+    f32[S,N], valid bool[S,N] -> (Tcw f32[S,4,4], inlier bool[S,N],
+    n_inliers i64[S]). The S solves share one set of launches; row s equals
+    pose_optimization on row s up to the reduction order of the batched
+    products. With a group, each rank holds its share of every pose's N
+    edges (module docstring)."""
+    set_f32_policy()
+    return _lm(Tcw0, Xw, obs, inv_sigma2, valid, fx, fy, cx, cy, None, 0.0,
+               4, 10, group)
+
+
+def _lm(Tcw0, Xw, obs, inv_sigma2, valid, fx, fy, cx, cy, obs_ur, bf,
+        n_rounds: int, n_iters: int, group):
+    """The rounds of LM over the leading axes of Tcw0 [...,4,4] (module
+    docstring); obs_ur None is every edge monocular."""
     f32 = torch.float32
     dev = Xw.device
     Xw, obs, T0 = Xw.to(f32), obs.to(f32), Tcw0.to(f32)
+    lead = T0.shape[:-2]
     if obs_ur is None:
-        obs_ur = torch.full((Xw.shape[0],), -1.0, dtype=f32, device=dev)
+        obs_ur = torch.full(Xw.shape[:-1], -1.0, dtype=f32, device=dev)
     obs_ur = obs_ur.to(f32)
     inlier = valid
     eye6 = torch.eye(6, dtype=f32, device=dev)
     args = (Xw, obs, obs_ur, bf, fx, fy, cx, cy)
     for r in range(n_rounds):
         use_huber = r < 2  # reference drops the kernel after round 2 (:393)
-        xi = torch.zeros(6, dtype=f32, device=dev)
-        lam = torch.full((), 1e-4, dtype=f32, device=dev)
+        xi = torch.zeros(lead + (6,), dtype=f32, device=dev)
+        lam = torch.full(lead, 1e-4, dtype=f32, device=dev)
         for _ in range(n_iters):
             e, J, z, is_st = _residuals(xi, T0, *args, with_jac=True)
-            chi2 = (e * e).sum(dim=1) * inv_sigma2
+            chi2 = (e * e).sum(dim=-1) * inv_sigma2
             active = inlier & (z > 0)
             if use_huber:
                 delta = torch.where(is_st,
@@ -113,39 +149,31 @@ def pose_optimization(Tcw0, Xw, obs, inv_sigma2, valid, fx, fy, cx, cy,
             else:
                 w_h = torch.ones_like(chi2)
             w = torch.where(active, w_h * inv_sigma2, torch.zeros_like(chi2))
-            H = torch.einsum("n,nif,nig->fg", w, J, J)
-            g = torch.einsum("n,nif,ni->f", w, J, e)
-            A = H + lam * torch.diag(torch.diagonal(H)) + 1e-9 * eye6
+            H = all_sum(torch.einsum("...n,...nif,...nig->...fg", w, J, J),
+                        group)
+            g = all_sum(torch.einsum("...n,...nif,...ni->...f", w, J, e),
+                        group)
+            A = (H + lam[..., None, None]
+                 * torch.diag_embed(torch.diagonal(H, dim1=-2, dim2=-1))
+                 + 1e-9 * eye6)
             dx = torch.linalg.solve_ex(A, -g)[0]
             zero = torch.zeros_like(chi2)
-            cost0 = torch.where(active, _rho(chi2, is_st, use_huber), zero).sum()
+            cost0 = all_sum(torch.where(active, _rho(chi2, is_st, use_huber),
+                                        zero).sum(dim=-1), group)
             e1, _, z1, _ = _residuals(xi + dx, T0, *args, with_jac=False)
-            chi2_1 = (e1 * e1).sum(dim=1) * inv_sigma2
-            cost1 = torch.where(inlier & (z1 > 0),
-                                _rho(chi2_1, is_st, use_huber), zero).sum()
+            chi2_1 = (e1 * e1).sum(dim=-1) * inv_sigma2
+            cost1 = all_sum(torch.where(inlier & (z1 > 0),
+                                        _rho(chi2_1, is_st, use_huber),
+                                        zero).sum(dim=-1), group)
             improved = cost1 < cost0
-            xi = torch.where(improved, xi + dx, xi)
+            xi = torch.where(improved[..., None], xi + dx, xi)
             lam = torch.where(improved, lam * 0.5, lam * 4.0).clamp(1e-10, 1e6)
         T0 = lie.se3_exp(xi) @ T0
         # Reclassify: raw chi2 against the 95% gates.
-        e, _, z, is_st = _residuals(torch.zeros(6, dtype=f32, device=dev), T0,
-                                    *args, with_jac=False)
-        chi2 = (e * e).sum(dim=1) * inv_sigma2
+        e, _, z, is_st = _residuals(torch.zeros_like(xi), T0, *args,
+                                    with_jac=False)
+        chi2 = (e * e).sum(dim=-1) * inv_sigma2
         gate = torch.where(is_st, torch.full_like(chi2, CHI2_STEREO),
                            torch.full_like(chi2, CHI2_MONO))
         inlier = valid & (z > 0) & (chi2 <= gate)
-    return T0, inlier, inlier.sum()
-
-
-def pose_optimization_batch(Tcw0, Xw, obs, inv_sigma2, valid, fx, fy, cx, cy):
-    """pose_optimization of S monocular problems over a leading sequence
-    axis: Tcw0 f32[S,4,4], Xw f32[S,N,3], obs f32[S,N,2], inv_sigma2
-    f32[S,N], valid bool[S,N] -> (Tcw f32[S,4,4], inlier bool[S,N],
-    n_inliers i64[S]). Every op of the LM has a batching rule, so the S
-    solves share one set of launches; row s equals pose_optimization on row
-    s up to the reduction order of the batched products."""
-    set_f32_policy()
-
-    def one(T0, X, uv, w, ok):
-        return pose_optimization(T0, X, uv, w, ok, fx, fy, cx, cy)
-    return torch.func.vmap(one)(Tcw0, Xw, obs, inv_sigma2, valid)
+    return T0, inlier, inlier.sum(dim=-1)

@@ -3,7 +3,8 @@ and the relocalization, loop-closing, stereo and chain-step torch code on
 the card against the CPU (the chain step under CUDA's sync debug mode),
 with one loop closed, one stereo run and one async + pipelined monocular
 run tracked on the card; the multi-sequence mode's batch-5 pack and
-batched front-end step on the card.
+batched front-end step on the card; the sharded solvers on NCCL ranks and
+the warm pass on the card.
 
 Marked `cuda`: they skip without a GPU (a CUDA kernel has no CPU mode).
 Run them on a machine with an NVIDIA GPU and nvcc (--noconftest: the
@@ -749,3 +750,93 @@ def test_frontend_step_on_the_card_matches_cpu(dev):
     assert float((T.cpu() - cT).abs().max()) <= 1e-3
     R = T[:, :3, :3].cpu()
     assert float((R @ R.transpose(1, 2) - torch.eye(3)).abs().max()) <= 1e-3
+
+
+def test_sharded_solvers_on_an_nccl_rank(dev, tmp_path):
+    """The sharded global BA and essential graph on a one-rank NCCL group
+    on the card: bit-equal to the unsharded solves on the card, which
+    test_bundle_adjust_cg_matches_cpu and the essential-graph test hold
+    against the CPU; the mesh step on a tracked state with totals equal to
+    the CPU's unsharded step and poses within 1e-4 of it; then
+    multiseq.dryrun(1) on that group."""
+    import os
+
+    import torch.distributed as dist
+    from orb_slam_system_tpu_torch.parallel import multiseq
+    from orb_slam_system_tpu_torch.parallel.ba_dist import (
+        bundle_adjust_cg_sharded)
+    from orb_slam_system_tpu_torch.parallel.pose_graph_dist import (
+        optimize_essential_graph_sharded)
+    from orb_slam_system_tpu_torch.solvers.local_ba import (BAProblem,
+                                                           bundle_adjust_cg)
+    from orb_slam_system_tpu_torch.solvers.pose_graph import (
+        optimize_essential_graph)
+    rng = np.random.default_rng(0)
+    C, P = 5, 101
+    X = rng.uniform(-2, 2, (P, 3)).astype(np.float32)
+    X[:, 2] += 6.0
+    Tcw = np.tile(np.eye(4, dtype=np.float32), (C, 1, 1))
+    Tcw[:, 0, 3] = -0.2 * np.arange(C)
+    Xc = np.einsum("cij,pj->cpi", Tcw[:, :3, :3], X) + Tcw[:, None, :3, 3]
+    uv = (Xc[..., :2] / Xc[..., 2:] * 300.0 + 160.0).reshape(-1, 2)
+    E = C * P
+    prob = BAProblem(*_to(
+        dev, Tcw, np.arange(C) == 0, np.ones(C, bool), X + 0.02,
+        np.ones(P, bool), np.repeat(np.arange(C), P), np.tile(np.arange(P), C),
+        (uv + rng.normal(0, 0.3, uv.shape)).astype(np.float32),
+        np.ones(E, np.float32), np.ones(E, bool)))
+    K = 9
+    t0 = (rng.normal(size=(K, 3)) * 0.1).astype(np.float32)
+    eg = _to(dev, np.tile(np.eye(3, dtype=np.float32), (K, 1, 1)), t0,
+             np.ones(K, np.float32), np.arange(K) == 0, np.ones(K, bool),
+             np.arange(K - 1), np.arange(1, K),
+             np.tile(np.eye(3, dtype=np.float32), (K - 1, 1, 1)),
+             np.full((K - 1, 3), 0.1, np.float32), np.ones(K - 1, np.float32),
+             np.ones(K - 1, bool))
+    dist.init_process_group(
+        "nccl", store=dist.FileStore(os.path.join(tmp_path, "store"), 1),
+        rank=0, world_size=1, device_id=torch.device("cuda", 0))
+    try:
+        for got, want in (
+                (bundle_adjust_cg_sharded(prob, 300.0, 300.0, 160.0, 160.0,
+                                          n_iters=4, cg_iters=30),
+                 bundle_adjust_cg(prob, 300.0, 300.0, 160.0, 160.0, n_iters=4,
+                                  cg_iters=30)),
+                (optimize_essential_graph_sharded(*eg, n_iters=5, cg_iters=20),
+                 optimize_essential_graph(*eg, n_iters=5, cg_iters=20))):
+            for a, b in zip(got, want):
+                assert a.is_cuda and torch.equal(a, b)
+        # The mesh step at one rank on a tracked state, against the
+        # unsharded step on the CPU on the same state.
+        step, args = multiseq.make_multiseq_step(
+            96, 128, n_features=128, n_levels=2, device=dev,
+            mesh=multiseq.make_mesh(1))
+        state = multiseq.tracked_args(args[0], 128, 2)
+        T, n_in, n_match = step(*state)
+        step_c, _ = multiseq.make_multiseq_step(
+            96, 128, n_features=128, n_levels=2, n_sequences=2, device="cpu")
+        T_c, n_in_c, n_match_c = step_c(*(a.cpu() for a in state))
+        assert 150 <= int(n_match_c) <= 256
+        assert (int(n_in), int(n_match)) == (int(n_in_c), int(n_match_c))
+        torch.testing.assert_close(T.cpu(), T_c, rtol=1e-4, atol=1e-4)
+        n_in, n_match = multiseq.dryrun(1)
+        assert 150 <= n_match <= 256 and n_in >= 0.8 * n_match
+    finally:
+        dist.destroy_process_group()
+
+
+def test_dryrun_multichip_nccl(dev):
+    """dryrun_multichip over every card, one NCCL rank each."""
+    from orb_slam_system_tpu_torch.parallel import multiseq
+    multiseq.dryrun_multichip(torch.cuda.device_count(), "nccl")
+
+
+def test_warm_pass_on_the_card(dev):
+    """warm() at 320x240 on the card runs both modes, and the kernel
+    library is among the libraries built."""
+    from orb_slam_system_tpu_torch.drivers.mono_synthetic import make_config
+    from orb_slam_system_tpu_torch.utils import warmup
+    seconds = warmup.warm(make_config(n_features=400), n_frames=6,
+                          verbose=True, device="cuda")
+    assert set(seconds) == {m for m, _, _ in warmup.MODES}
+    assert any(p.name == "liborb_kernels.so" for p in warmup.built_libraries())

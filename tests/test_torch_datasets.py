@@ -298,10 +298,13 @@ def test_detect_agrees_with_jax(name, sensor, tmp_path):
     jkind, jdriver, jsettings = jrun_dataset.detect(d, sensor)
     assert (kind, settings) == (jkind, jsettings)
     assert jdriver == f"examples/{driver}.py"
-    # The default settings file is the package's own copy of the JAX one.
-    with open(os.path.join(run_dataset.SETTINGS, settings), "rb") as f, \
-            open(os.path.join(SETTINGS, jsettings), "rb") as g:
-        assert f.read() == g.read()
+    # The default settings file is the package's own copy of the JAX one,
+    # as is the stereo node's rectification file (drivers/ros_stereo.py).
+    for ours, theirs in ((settings, jsettings),
+                         ("euroc_stereo.yaml", "euroc_stereo.yaml")):
+        with open(os.path.join(run_dataset.SETTINGS, ours), "rb") as f, \
+                open(os.path.join(SETTINGS, theirs), "rb") as g:
+            assert f.read() == g.read()
 
 
 def test_rectify_maps_bit_equal_to_jax(rng):

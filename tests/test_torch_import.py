@@ -25,7 +25,12 @@ for new in ("vocab.vocabulary", "mapping.keyframe_db",
             "drivers.run_dataset", "parallel", "parallel.multi_system",
             "parallel.multiseq", "drivers.multiseq_throughput",
             "drivers.endurance_synthetic", "drivers.kitti_synthetic",
-            "models.ar"):
+            "models.ar", "dataio.ros_bridge", "dataio.ros_replay",
+            "drivers.ros_mono", "drivers.ros_stereo", "drivers.ros_rgbd",
+            "drivers.ros_mono_ar", "drivers.live_camera",
+            "drivers.video_slam", "drivers.warm_cache", "utils.warmup",
+            "utils.collectives", "parallel.ba_dist",
+            "parallel.pose_graph_dist", "parallel.launch"):
     assert pkg.__name__ + "." + new in names, new
 for n in names:
     importlib.import_module(n)
@@ -39,6 +44,10 @@ from orb_slam_system_tpu_torch import native
 assert native._lib is None, "the native decoder was built at import"
 assert "async_mapping" in inspect.signature(System).parameters
 assert "use_viewer" in inspect.signature(System).parameters
+assert "prewarm" in inspect.signature(System).parameters
+from orb_slam_system_tpu_torch.parallel import multiseq
+for name in ("make_mesh", "make_multiseq_step", "dryrun", "dryrun_multichip"):
+    assert callable(getattr(multiseq, name)), name
 from orb_slam_system_tpu_torch.models import viewer
 for name in ("annotate_frame", "status_text", "export_map_ply", "LiveViewer",
              "StatsViewer", "write_pgm", "encode_png"):
@@ -95,8 +104,10 @@ def test_port_never_imports_jax():
     package, tools/ or examples/, and without building the native decoder;
     the System has its realtime and map entry points. The multi-sequence
     modules (parallel/, drivers/multiseq_throughput) are among them, and
-    the long-run drivers, the whole viewer and the AR overlay."""
-    assert int(_run(_IMPORT_ALL).split()[-1]) >= 72
+    the long-run drivers, the whole viewer and the AR overlay, the ROS
+    bridge and its four nodes, the live and video drivers, the warm pass
+    and the sharded solvers."""
+    assert int(_run(_IMPORT_ALL).split()[-1]) >= 86
 
 
 def test_entry_points_default_to_the_card():
@@ -142,6 +153,51 @@ def test_entry_points_default_to_the_card():
         finally:
             setattr(mod, attr, orig)
         assert seen["device"] == "cuda", mod
+
+
+def test_nodes_and_live_drivers_default_to_the_card(tmp_path, monkeypatch):
+    """The ROS nodes, the live and video drivers and the warm pass hand
+    "cuda" to the System unless --device says otherwise."""
+    import inspect
+
+    from orb_slam_system_tpu_torch.config import save_settings_yaml
+    from orb_slam_system_tpu_torch.dataio.ros_replay import (ImageMsg,
+                                                             ReplayRospy)
+    from orb_slam_system_tpu_torch.drivers import (live_camera,
+                                                   mono_synthetic, ros_mono,
+                                                   ros_mono_ar, ros_rgbd,
+                                                   ros_stereo, video_slam,
+                                                   warm_cache)
+    from orb_slam_system_tpu_torch.utils import warmup
+    settings = str(tmp_path / "s.yaml")
+    save_settings_yaml(mono_synthetic.make_config(), settings)
+    seen = []
+
+    class Made(Exception):
+        pass
+
+    def system(*a, **kw):
+        seen.append(kw["device"])
+        raise Made
+    monkeypatch.setattr(live_camera, "open_capture", lambda index: object())
+    for mod, argv in ((ros_mono, [settings]), (ros_stereo, [settings, "false"]),
+                      (ros_rgbd, [settings]), (ros_mono_ar, [settings]),
+                      (live_camera, [settings]),
+                      (video_slam, [settings, str(tmp_path)])):
+        monkeypatch.setattr(mod, "System", system)
+        kw = ({"rospy_module": ReplayRospy([]), "image_cls": ImageMsg}
+              if mod.__name__.split(".")[-1].startswith("ros_") else {})
+        for extra, want in (([], "cuda"), (["--device", "cpu"], "cpu")):
+            try:
+                mod.main(["none", *argv, *extra], **kw)
+            except Made:
+                pass
+            assert seen.pop() == want, mod
+    assert inspect.signature(warmup.warm).parameters["device"].default == "cuda"
+    monkeypatch.setattr(warm_cache, "warm",
+                        lambda cfg, n, verbose, device: seen.append(device))
+    warm_cache.main([])
+    assert seen == ["cuda"]
 
 
 def test_wrappers_take_plain_path_on_cpu():
