@@ -35,6 +35,7 @@ from orb_slam_system_tpu_torch.mapping.arena import FrameFeatures
 from orb_slam_system_tpu_torch.ops.extractor import ORBExtractor
 from orb_slam_system_tpu_torch.ops.stereo import rgbd_pseudo_stereo, stereo_match
 from orb_slam_system_tpu_torch.utils import camera as cam_ops
+from orb_slam_system_tpu_torch.utils.metrics import fetch, span
 from orb_slam_system_tpu_torch.utils.precision import set_f32_policy
 
 
@@ -79,7 +80,7 @@ class Frame:
         """Host copy of the features (one device->host copy, made once)."""
         if self.feats_host is None:
             self.feats_host = FrameBuilder._unpack_feats(
-                self.packed.cpu().numpy())
+                fetch(self.packed, "track"))
         return self.feats_host
 
     @property
@@ -179,8 +180,9 @@ class FrameBuilder:
         describe mode launch once for all S images), one undistortion and
         pack. Row s equals extract_packed(imgs[s]): the kernels and every
         op after them work per image."""
-        fs = self.extractor(self._upload(imgs))
-        return self._pack(fs, fs.xy.shape[0])
+        with span("track.extract"):
+            fs = self.extractor(self._upload(imgs))
+            return self._pack(fs, fs.xy.shape[0])
 
     def extract_packed_stereo(self, left, right) -> torch.Tensor:
         """A rectified pair -> packed f32[N, 18] of the left image: one
@@ -211,16 +213,22 @@ class FrameBuilder:
 
     def build(self, img, timestamp: float) -> Frame:
         """img: f32/u8 [H, W] grayscale -> Frame whose packed tensor stays
-        on the device (no host copy)."""
-        return self._frame(self.extract_packed(img), timestamp)
+        on the device (no host copy); the span track.extract, as are
+        build_stereo's and build_rgbd's."""
+        with span("track.extract"):
+            return self._frame(self.extract_packed(img), timestamp)
 
     def build_stereo(self, left, right, timestamp: float) -> Frame:
         """A rectified stereo pair -> Frame (packed f32[N, 18])."""
-        return self._frame(self.extract_packed_stereo(left, right), timestamp)
+        with span("track.extract"):
+            return self._frame(self.extract_packed_stereo(left, right),
+                               timestamp)
 
     def build_rgbd(self, img, depth_map, timestamp: float) -> Frame:
         """An image and its raw depth map -> Frame (packed f32[N, 18])."""
-        return self._frame(self.extract_packed_rgbd(img, depth_map), timestamp)
+        with span("track.extract"):
+            return self._frame(self.extract_packed_rgbd(img, depth_map),
+                               timestamp)
 
     def _frame(self, packed: torch.Tensor, timestamp: float) -> Frame:
         f = Frame(id=self._next_id, timestamp=timestamp, packed=packed)

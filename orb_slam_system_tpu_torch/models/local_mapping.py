@@ -43,7 +43,7 @@ from orb_slam_system_tpu_torch.ops import mapper_fused, matching
 from orb_slam_system_tpu_torch.solvers.local_ba import (
     BAProblem, local_bundle_adjustment_packed, unpack_local_ba)
 from orb_slam_system_tpu_torch.utils.interop import to_device
-from orb_slam_system_tpu_torch.utils.metrics import StageTimer
+from orb_slam_system_tpu_torch.utils.metrics import StageTimer, fetch
 from orb_slam_system_tpu_torch.utils.precision import set_f32_policy
 
 # Local BA window: at most BA_CAMS cameras (window + fixed boundary),
@@ -83,7 +83,7 @@ class LocalMapper:
         # MapPointCulling observation threshold: 2 mono, 3 stereo/RGB-D
         # (reference LocalMapping.cc:137-151 cnThObs).
         self.cull_obs_th = 2 if cfg.sensor == Sensor.MONOCULAR else 3
-        self.stage_ms = StageTimer()
+        self.stage_ms = StageTimer("mapping")
         # The worker thread (start_async) and what the tracker reads of it:
         # _busy while it processes a batch; _expanding from the pop of a
         # queued keyframe until the batch's triangulation + fusion landed
@@ -450,7 +450,7 @@ class LocalMapper:
                 buf = mapper_fused.fuse_step(tri_dev, *fuse_args)
             else:
                 buf = tri_dev.reshape(-1)
-            buf = buf.cpu().numpy()
+            buf = fetch(buf, "mapping")
         with st.stage("tri_fuse_merge"):
             tri, idxA, idxB = mapper_fused.unpack_tri_fuse(
                 buf, N1, T, 2 * N1, PB, do_fuse)
@@ -591,8 +591,8 @@ class LocalMapper:
                     t(self._stack(dkfs, lambda k: k.feats.octave, n2)),
                     t(np.zeros((M, n2), bool)))
         with st.stage("fuse_device"), self.arena.unlocked():
-            idx2_all = matching.search_by_projection_set_batch(
-                *args).cpu().numpy()
+            idx2_all = fetch(matching.search_by_projection_set_batch(*args),
+                             "mapping")
         with st.stage("fuse_merge"):
             touched: dict = {}
             for j, (dkf, ids) in enumerate(jobs):
@@ -651,8 +651,8 @@ class LocalMapper:
         cam = self.cfg.camera
         C, P, E = prob.Tcw.shape[0], prob.points.shape[0], prob.e_cam.shape[0]
         with self.stage_ms.stage("ba_device"), self.arena.unlocked():
-            buf = local_bundle_adjustment_packed(
-                prob, cam.fx, cam.fy, cam.cx, cam.cy).cpu().numpy()
+            buf = fetch(local_bundle_adjustment_packed(
+                prob, cam.fx, cam.fy, cam.cx, cam.cy), "mapping")
             Tcw_new, X_new, inlier = unpack_local_ba(buf, C, P, E)
         with self.stage_ms.stage("ba_writeback"):
             self._local_ba_writeback(cam_index, cam_fixed, pt_index,

@@ -58,7 +58,7 @@ from orb_slam_system_tpu_torch.models.place_recognition import PlaceRecognition
 from orb_slam_system_tpu_torch.ops import matching
 from orb_slam_system_tpu_torch.solvers import local_ba, pose_graph, sim3
 from orb_slam_system_tpu_torch.utils.interop import to_device
-from orb_slam_system_tpu_torch.utils.metrics import StageTimer
+from orb_slam_system_tpu_torch.utils.metrics import StageTimer, fetch
 from orb_slam_system_tpu_torch.vocab.vocabulary import Vocabulary
 
 CONSISTENCY_TH = 3       # reference src/LoopClosing.cc:17
@@ -94,7 +94,7 @@ class LoopCloser:
         # Funnel of loop attempts: detect calls -> database candidates ->
         # consistent -> sim3 attempts -> each rejection gate -> accepts.
         self.stats = Counter()
-        self.stage_ms = StageTimer()
+        self.stage_ms = StageTimer("loop")
         self.gba = GBARunner(self.stage_ms)
         # The reference solves global BA on a side thread; sync_gba solves
         # it inline, so a run gives the same map every time.
@@ -238,10 +238,10 @@ class LoopCloser:
         sets = sim3.make_sim3_sample_sets(sample_bound(N), 300, 0)
         t = self._t
         with st.stage("sim3_ransac_batch"):
-            out = sim3.sim3_ransac_batch(
+            out = fetch(sim3.sim3_ransac_batch(
                 t(P1b), t(P2b), t(uv1b), t(uv2b), t(m1b), t(m2b), t(okb),
                 t(sets), cam.fx, cam.fy, cam.cx, cam.cy,
-                fix_scale=self.fix_scale).cpu().numpy()
+                fix_scale=self.fix_scale), "loop")
         for k, (ckf, rows1, rows2, P1, P2, ok) in enumerate(eligible):
             if not out[k, 0] > 0.5:
                 self.stats["rej_ransac"] += 1
@@ -272,9 +272,9 @@ class LoopCloser:
                     t(self.inv_sigma2[ckf.feats.octave[rows2]]),
                     t(ok1 & ok2), cam.fx, cam.fy, cam.cx, cam.cy,
                     fix_scale=self.fix_scale)
-                res = torch.cat([n_in.to(s_f.dtype)[None], s_f[None],
-                                 R_f.reshape(9), t_f,
-                                 inl_f.to(s_f.dtype)]).cpu().numpy()
+                res = fetch(torch.cat([n_in.to(s_f.dtype)[None], s_f[None],
+                                       R_f.reshape(9), t_f,
+                                       inl_f.to(s_f.dtype)]), "loop")
             if int(res[0]) < 20:
                 self.stats["rej_opt_lt20"] += 1
                 continue
@@ -320,12 +320,12 @@ class LoopCloser:
         node2 = stack(lambda k: (k.node_ids if k.node_ids is not None
                                  else np.zeros(k.feats.n_slots, np.int32)))
         t = self._t
-        idx2_all = matching.search_by_node_id_retry_batch(
+        idx2_all = fetch(matching.search_by_node_id_retry_batch(
             t(kf1.feats.desc), t(has1), t(kf1.feats.angle),
             t(np.where(has1, n1, -1)),
             t(stack(lambda k: k.feats.desc)), t(has2),
             t(stack(lambda k: k.feats.angle)),
-            t(np.where(has2, node2, -1))).cpu().numpy()
+            t(np.where(has2, node2, -1))), "loop")
         return [[(int(i), int(row[i])) for i in np.nonzero(row >= 0)[0]]
                 for row in idx2_all]
 
@@ -401,10 +401,10 @@ class LoopCloser:
                                         sR12 @ t2w + t12, th)
         t = self._t
         f1, f2 = kf1.feats, kf2.feats
-        idx2 = matching.search_by_sim3(
+        idx2 = fetch(matching.search_by_sim3(
             t(d1), *(t(a) for a in g1), t(d2), *(t(a) for a in g2),
             t(f1.desc), t(f1.xy_und), t(f1.valid), t(f1.octave),
-            t(f2.desc), t(f2.xy_und), t(f2.valid), t(f2.octave)).cpu().numpy()
+            t(f2.desc), t(f2.xy_und), t(f2.valid), t(f2.octave)), "loop")
         return {int(i): int(j) for i, j in enumerate(idx2) if j >= 0}
 
     def _project_loop_points(self, kf: KeyFrameRec, Scw: dict,
@@ -431,10 +431,10 @@ class LoopCloser:
         already[list(cur_matches)] = True
         t = self._t
         f = kf.feats
-        idx2 = matching.search_by_projection_set(
+        idx2 = fetch(matching.search_by_projection_set(
             t(proj), t(radius), t(lvl), t(good), t(desc), t(f.xy_und),
             t(f.desc), t(f.valid), t(f.octave), t(already),
-            max_dist=matching.TH_LOW).idx2.cpu().numpy()
+            max_dist=matching.TH_LOW).idx2, "loop")
         for k in np.nonzero(idx2 >= 0)[0]:
             slot = int(idx2[k])
             if slot not in cur_matches:
@@ -664,7 +664,7 @@ class LoopCloser:
             t(np.stack(e_R).astype(np.float32)),
             t(np.stack(e_t).astype(np.float32)),
             t(np.asarray(e_s, np.float32)), t(np.ones(E, bool)))
-        buf = torch.cat([Rn.reshape(-1), tn.reshape(-1), sn]).cpu().numpy()
+        buf = fetch(torch.cat([Rn.reshape(-1), tn.reshape(-1), sn]), "loop")
         Rn = buf[:9 * K].reshape(K, 3, 3)
         tn = buf[9 * K:12 * K].reshape(K, 3)
         sn = buf[12 * K:]
@@ -885,7 +885,7 @@ class GBARunner:
                     Tcw, X = local_ba.bundle_adjust_cg(
                         p, cam.fx, cam.fy, cam.cx, cam.cy,
                         n_iters=self.CHUNK_ITERS, cg_iters=self.CG_ITERS)
-            buf = torch.cat([Tcw.reshape(-1), X.reshape(-1)]).cpu().numpy()
+            buf = fetch(torch.cat([Tcw.reshape(-1), X.reshape(-1)]), "loop")
         if self._abort:
             return
         with self._lock:

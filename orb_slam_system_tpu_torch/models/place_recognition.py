@@ -25,6 +25,7 @@ import torch
 from orb_slam_system_tpu_torch.mapping.arena import KeyFrameRec, MapArena
 from orb_slam_system_tpu_torch.mapping.keyframe_db import KeyFrameDatabase
 from orb_slam_system_tpu_torch.utils.interop import to_device
+from orb_slam_system_tpu_torch.utils.metrics import fetch
 from orb_slam_system_tpu_torch.vocab.vocabulary import Vocabulary, bow_dict
 
 MIN_KFS_FOR_SELF_TRAIN = 5
@@ -67,12 +68,14 @@ class PlaceRecognition:
             self._compute_bow(kf)
             self.db.add(kf.id, kf.bow)
 
-    def _descend(self, desc: torch.Tensor, valid: torch.Tensor):
+    def _descend(self, desc: torch.Tensor, valid: torch.Tensor,
+                 layer: str = "mapping"):
         """(BoW dict, node ids i32[N] on the device, the same on the host)
-        with one fetch."""
+        with one fetch, counted in `layer` (a keyframe's in mapping, a
+        frame's in tracking)."""
         word_ids, weights, node_ids = self.vocab.transform_device(desc, valid)
-        host = torch.stack([word_ids, weights.view(torch.int32),
-                            node_ids]).cpu().numpy()
+        host = fetch(torch.stack([word_ids, weights.view(torch.int32),
+                                  node_ids]), layer)
         return (bow_dict(host[0], host[1].view(np.float32)), node_ids,
                 host[2].copy())
 
@@ -102,7 +105,7 @@ class PlaceRecognition:
         (None, None) before the vocabulary exists."""
         if not self.ready:
             return None, None
-        return self._descend(desc, valid)[:2]
+        return self._descend(desc, valid, "track")[:2]
 
     def reset(self):
         if self.db is not None:

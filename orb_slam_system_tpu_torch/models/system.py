@@ -49,6 +49,7 @@ frame after it is tracked: a live page on localhost, or a status line.
 
 from __future__ import annotations
 
+import contextlib
 import threading
 import time
 from collections import deque
@@ -67,7 +68,7 @@ from orb_slam_system_tpu_torch.models.loop_closing import LoopCloser
 from orb_slam_system_tpu_torch.models.place_recognition import PlaceRecognition
 from orb_slam_system_tpu_torch.models.track_device import ChainFetch
 from orb_slam_system_tpu_torch.models.tracking import Tracker
-from orb_slam_system_tpu_torch.utils.metrics import Telemetry
+from orb_slam_system_tpu_torch.utils.metrics import Telemetry, span, take_spans
 from orb_slam_system_tpu_torch.utils.precision import set_f32_policy
 from orb_slam_system_tpu_torch.vocab.vocabulary import Vocabulary
 
@@ -106,10 +107,10 @@ class System:
         self.local_mapper.loop_closer = self.loop_closer
         self.tracker = Tracker(self.cfg, self.arena, self.local_mapper, device,
                                place_rec=self.place_rec)
-        self._timings: list[float] = []
         # Per-frame records: state, keypoints, inliers, tracked points, map
         # size, track_ms, mapping_ms (host clock; both end in a device
-        # fetch), loops closed, global BAs applied.
+        # fetch), loops closed, global BAs applied, and the frame's spans
+        # (utils/metrics.py).
         self.telemetry = Telemetry()
         # Reentrant: the Track* entry points and state getters may be called
         # from several threads (reference mMutexMode / mMutexState).
@@ -165,13 +166,10 @@ class System:
         return rgb_to_gray(img, self.cfg.camera.rgb) if img.ndim == 3 else img
 
     def _track(self, grab, timestamp: float, *args, view=None):
-        """Track one frame through grab(*args) under the System's lock, then
-        _after_frame (view: the image the viewer shows)."""
-        with self._lock:
-            t0 = time.perf_counter()
-            Tcw = grab(*args)
-            self._after_frame(timestamp, t0, time.perf_counter(), view)
-            return Tcw
+        """Track one frame through grab(*args) under the System's lock, as
+        one _frame (view: the image the viewer shows)."""
+        with self._lock, self._frame(timestamp, view):
+            return grab(*args)
 
     def _pump_mapping(self):
         """Synchronous mapping: drain the keyframe queue here (the worker
@@ -180,13 +178,25 @@ class System:
             self.local_mapper.process_pending()
         self.loop_closer.poll_gba()
 
-    def _after_frame(self, timestamp: float, t0: float, t1: float,
-                     view: Optional[np.ndarray] = None):
-        """Pump mapping after a frame tracked from t0 to t1 (host clock),
-        record its telemetry and show `view` in the viewer."""
-        self._pump_mapping()
-        t2 = time.perf_counter()
-        self._timings.append(t2 - t0)
+    @contextlib.contextmanager
+    def _frame(self, timestamp: float, view: Optional[np.ndarray] = None):
+        """One frame, in the span system.frame: the caller tracks it in the
+        body, then mapping is pumped. Once the span closed, the frame's
+        telemetry is recorded and `view` shown in the viewer."""
+        with span("system.frame"):
+            t0 = time.perf_counter()
+            yield
+            t1 = time.perf_counter()
+            self._pump_mapping()
+            t2 = time.perf_counter()
+        self._record(timestamp, t0, t1, t2)
+        if view is not None:
+            self._view(view)
+
+    def _record(self, timestamp: float, t0: float, t1: float, t2: float):
+        """The telemetry of a frame tracked from t0 to t1 and mapped to t2
+        (host clock), with the spans this thread ran since its last record:
+        the frame's own, system.frame included."""
         cur = self.tracker.current
         # No fetch for telemetry: the frame's host copy where it has one,
         # else the count the last device step reported.
@@ -200,9 +210,7 @@ class System:
             n_kfs=self.arena.n_keyframes(), n_mps=self.arena.n_points(),
             track_ms=(t1 - t0) * 1e3, mapping_ms=(t2 - t1) * 1e3,
             loops=self.loop_closer.n_loops_closed,
-            gba_applied=self.loop_closer.n_gba_applied)
-        if view is not None:
-            self._view(view)
+            gba_applied=self.loop_closer.n_gba_applied, spans=take_spans())
 
     def _view(self, img: np.ndarray):
         """The viewer's per-frame update (the reference Viewer::Run
@@ -245,15 +253,13 @@ class System:
                 if tr.state != TrackingState.OK:
                     with self._lock:
                         frame = tr.build_frame(img, ts)
-            with self._lock:
-                t0 = time.perf_counter()
+            with self._lock, self._frame(ts, img):
                 if tr.state == TrackingState.OK:
                     nxt = next(it, None)
                     if nxt is not None:
                         img2, ts2 = self._gray(nxt[0]), nxt[1]
                         pending = (tr.build_frame(img2, ts2), img2, ts2)
                 Tcw = tr.grab_prebuilt(frame)
-                self._after_frame(ts, t0, time.perf_counter(), img)
             yield Tcw
 
     def track_monocular_pipelined(self, frames, resync_every: int = 0,
@@ -345,8 +351,10 @@ class System:
             with tr.stage_ms.stage("chain_fetch_wait"):
                 host_out = fetch.wait(ticket)
             # correction_lock over the frame's whole commit, as track() has.
-            with self._lock, tr.arena.correction_lock:
-                t0 = time.perf_counter()
+            # (Mapping, pumped at the frame's end, leaves the tracker's
+            # state as it is.)
+            with (self._lock, tr.arena.correction_lock,
+                  self._frame(frame.timestamp)):
                 with tr.arena.lock:
                     # A correction since the enqueue: the result lives in
                     # the old map frame.
@@ -366,7 +374,6 @@ class System:
                         state = None
                         broke = True
                     Tcw = tr.grab_prebuilt(frame)
-                self._after_frame(frame.timestamp, t0, time.perf_counter())
                 if tr.state != TrackingState.OK:
                     state = None
                     broke = True
@@ -544,11 +551,13 @@ class System:
     LoadMap = load_map
 
     def timing_report(self):
-        """Median/mean per-frame time (tracking + mapping), the report the
-        reference drivers print at exit."""
-        if not self._timings:
+        """Median/mean per-frame time (tracking + mapping, from the
+        telemetry records), the report the reference drivers print at
+        exit."""
+        recs = self.telemetry.records
+        if not recs:
             return {"median_s": 0.0, "mean_s": 0.0}
-        t = np.sort(np.asarray(self._timings))
+        t = np.sort([(r["track_ms"] + r["mapping_ms"]) * 1e-3 for r in recs])
         return {"median_s": float(t[len(t) // 2]), "mean_s": float(t.mean())}
 
 

@@ -40,6 +40,7 @@ from orb_slam_system_tpu_torch.solvers.pose_opt import pose_optimization
 from orb_slam_system_tpu_torch.utils import lie
 from orb_slam_system_tpu_torch.utils.interop import (local_block_from_numpy,
                                                      to_device)
+from orb_slam_system_tpu_torch.utils.metrics import fetch, span
 from orb_slam_system_tpu_torch.utils.precision import set_f32_policy
 
 
@@ -104,10 +105,13 @@ class TrackPrograms:
     # ---- device programs --------------------------------------------------
 
     def _pose_opt(self, Tcw, Xw, obs, inv_sigma2, ok, ur):
+        """Every pose LM of tracking (the span track.pose_lm)."""
         cam = self.cfg.camera
-        return pose_optimization(
-            Tcw, Xw, obs, inv_sigma2, ok, cam.fx, cam.fy, cam.cx, cam.cy,
-            obs_ur=torch.where(ok, ur, torch.full_like(ur, -1.0)), bf=cam.bf)
+        with span("track.pose_lm"):
+            return pose_optimization(
+                Tcw, Xw, obs, inv_sigma2, ok, cam.fx, cam.fy, cam.cx, cam.cy,
+                obs_ur=torch.where(ok, ur, torch.full_like(ur, -1.0)),
+                bf=cam.bf)
 
     def motion_core(self, proj, ok, pos_last, packed_last, packed_cur,
                     Tcw_pred, th):
@@ -294,10 +298,10 @@ class TrackPrograms:
             self._tensor(pos_last), packed_last, packed_cur,
             self._tensor(Tcw_pred), torch.tensor(float(th), device=self.device))
         f = torch.float32
-        out = torch.cat([
+        out = fetch(torch.cat([
             T.reshape(-1), best_j.to(f), matched.to(f), inlier.to(f),
             torch.stack([n_in.to(f), matched.sum().to(f),
-                         cur_valid.sum().to(f)])]).cpu().numpy()
+                         cur_valid.sum().to(f)])]), "track")
         return (out[:16].reshape(4, 4).astype(np.float32),
                 out[16:16 + n].astype(np.int64),
                 out[16 + n:16 + 2 * n] > 0.5,
@@ -317,8 +321,8 @@ class TrackPrograms:
             *block, self._tensor(Xw_pre), self._tensor(ok_pre),
             packed_cur, self._tensor(already), self._tensor(Tcw))
         f = torch.float32
-        out = torch.cat([T.reshape(-1), idx2.to(f), visible.to(f),
-                         inlier.to(f), n_in.to(f).reshape(1)]).cpu().numpy()
+        out = fetch(torch.cat([T.reshape(-1), idx2.to(f), visible.to(f),
+                               inlier.to(f), n_in.to(f).reshape(1)]), "track")
         return (out[:16].reshape(4, 4).astype(np.float32),
                 out[16:16 + p].astype(np.int64),
                 out[16 + p:16 + 2 * p] > 0.5,
@@ -346,8 +350,8 @@ class TrackPrograms:
         host_in[17, 7] = th
         block = local_block_from_numpy(lm_pos, lm_normal, lm_mind, lm_maxd,
                                        lm_desc, lm_valid, self.device)
-        out = self._fused(torch.from_numpy(host_in).to(self.device),
-                          packed_last, packed_cur, *block).cpu().numpy()
+        out = fetch(self._fused(torch.from_numpy(host_in).to(self.device),
+                                packed_last, packed_cur, *block), "track")
         p = self._p
         o = 16
         T2 = out[:16].reshape(4, 4).astype(np.float32)
@@ -431,8 +435,10 @@ class ChainFetch:
 
     @staticmethod
     def wait(ticket) -> np.ndarray:
-        """Block until the ticket's copy landed; the host buffer as numpy."""
+        """Block until the ticket's copy landed; the host buffer as numpy.
+        The wait is a fetch (the span track.fetch)."""
         buf, event = ticket
-        if event is not None:
-            event.synchronize()
-        return buf.numpy()
+        with span("track.fetch"):
+            if event is not None:
+                event.synchronize()
+            return buf.numpy()

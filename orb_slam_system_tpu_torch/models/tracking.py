@@ -85,7 +85,7 @@ from orb_slam_system_tpu_torch.solvers.initializer import make_ransac_sets
 from orb_slam_system_tpu_torch.utils import lie
 from orb_slam_system_tpu_torch.utils.interop import (local_block_from_numpy,
                                                      to_device)
-from orb_slam_system_tpu_torch.utils.metrics import StageTimer
+from orb_slam_system_tpu_torch.utils.metrics import StageTimer, fetch
 from orb_slam_system_tpu_torch.utils.precision import set_f32_policy
 
 LOCAL_MAP_SLOTS = 4096     # padded local-map point budget for device calls
@@ -247,8 +247,8 @@ def fused_track_step(programs, packed_last, packed_cur, last_Tcw,
 def _with_count(idx: torch.Tensor, valid: torch.Tensor):
     """(idx as numpy, valid.sum()) in one device->host copy: a search's
     result and the frame's valid-feature count."""
-    out = torch.cat([idx.reshape(-1).to(torch.int64),
-                     valid.sum().reshape(1).to(torch.int64)]).cpu().numpy()
+    out = fetch(torch.cat([idx.reshape(-1).to(torch.int64),
+                           valid.sum().reshape(1).to(torch.int64)]), "track")
     return out[:-1].reshape(idx.shape), int(out[-1])
 
 
@@ -316,8 +316,8 @@ class Tracker(InitAndKeyframes):
         self.local_kf_ids: list[int] = []
         # ((local keyframe ids, arena.version) -> padded local-map block)
         self._local_block_cache = None
-        # Wall time per stage of the steady-state path.
-        self.stage_ms = StageTimer()
+        # Wall time per stage of the steady-state path (spans track.*).
+        self.stage_ms = StageTimer("track")
         self.frames_since_reloc = 10 ** 9
         # Relocalization funnel: attempts, no_candidates, no_viable_pnp,
         # all_candidates_failed, ok.
@@ -670,7 +670,7 @@ class Tracker(InitAndKeyframes):
         T, inlier, _ = self.programs._pose_opt(
             self._tensor(T0), self._tensor(pos), xy,
             self.programs.inv_sigma2[octv], self._tensor(ok), ur)
-        out = torch.cat([T.reshape(-1), inlier.float()]).cpu().numpy()
+        out = fetch(torch.cat([T.reshape(-1), inlier.float()]), "track")
         cur.Tcw = out[:16].reshape(4, 4).astype(np.float32)
         inlier = out[16:] > 0.5
         bad = ok & ~inlier
@@ -1141,8 +1141,8 @@ class Tracker(InitAndKeyframes):
             t(Xw_all[viable]), xy, self.programs.inv_sigma2[c_oct],
             t(ok_all[viable]), t(pnp.make_pnp_sample_sets(n, 300, 0)),
             cam.fx, cam.fy, cam.cx, cam.cy)
-        out = torch.cat([pnp_ok.float(), T_pnp.reshape(-1),
-                         pnp_inl.float().reshape(-1)]).cpu().numpy()
+        out = fetch(torch.cat([pnp_ok.float(), T_pnp.reshape(-1),
+                               pnp_inl.float().reshape(-1)]), "track")
         pnp_ok = out[:V] > 0.5
         T_pnp = out[V:17 * V].reshape(V, 4, 4)
         pnp_inl = out[17 * V:].reshape(V, n) > 0.5
@@ -1200,9 +1200,9 @@ class Tracker(InitAndKeyframes):
                       self.cfg.orb.n_levels - 1).astype(np.int32)
         xy, _, c_oct, c_valid, c_desc, _ = unpack(cur.packed)
         t = self._tensor
-        idx2 = matching.search_by_projection_set(
+        idx2 = fetch(matching.search_by_projection_set(
             t(proj.astype(np.float32)), t(radius), t(lvl), t(valid), t(desc),
-            xy, c_desc, c_valid, c_oct, t(already)).idx2.cpu().numpy()
+            xy, c_desc, c_valid, c_oct, t(already)).idx2, "track")
         for k in np.nonzero(idx2 >= 0)[0]:
             cur.mp_ids[idx2[k]] = slots[k][0]
 

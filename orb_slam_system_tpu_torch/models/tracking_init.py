@@ -38,6 +38,7 @@ from orb_slam_system_tpu_torch.ops import matching
 from orb_slam_system_tpu_torch.solvers.initializer import initialize_two_view
 from orb_slam_system_tpu_torch.solvers.local_ba import (
     BAProblem, global_bundle_adjustment)
+from orb_slam_system_tpu_torch.utils.metrics import fetch
 
 
 def _backproject(xy_und: np.ndarray, z: np.ndarray, cam) -> np.ndarray:
@@ -70,7 +71,7 @@ class InitAndKeyframes:
             r_xy, r_desc, r_valid, r_oct, r_ang,
             c_xy, c_desc, c_valid, c_oct, c_ang,
             prev_matched_xy=self._tensor(self.prev_matched))
-        idx2 = res.idx2.cpu().numpy()
+        idx2 = fetch(res.idx2, "track")
         matched = idx2 >= 0
         # The viewer's initialization overlay (reference FrameDrawer
         # :27-48): the matched (reference, current) keypoint pairs.
@@ -90,10 +91,10 @@ class InitAndKeyframes:
             self._tensor(pts1), self._tensor(pts2), self._tensor(matched),
             self._ransac, self._tensor(self.cfg.camera.K))
         M = len(pts1)
-        out = torch.cat([init.success.reshape(1).float(),
-                         init.R21.reshape(-1), init.t21,
-                         init.points3d.reshape(-1),
-                         init.is_triangulated.float()]).cpu().numpy()
+        out = fetch(torch.cat([init.success.reshape(1).float(),
+                               init.R21.reshape(-1), init.t21,
+                               init.points3d.reshape(-1),
+                               init.is_triangulated.float()]), "track")
         if out[0] < 0.5:
             return
         good = (out[13 + 3 * M:] > 0.5) & matched
@@ -146,7 +147,7 @@ class InitAndKeyframes:
         cam = self.cfg.camera
         Tcw_opt, X_opt, _ = global_bundle_adjustment(
             prob, cam.fx, cam.fy, cam.cx, cam.cy, n_iters=20)
-        buf = torch.cat([Tcw_opt.reshape(-1), X_opt.reshape(-1)]).cpu().numpy()
+        buf = fetch(torch.cat([Tcw_opt.reshape(-1), X_opt.reshape(-1)]), "track")
         Tcw_opt = buf[:32].reshape(2, 4, 4)
         X_opt = buf[32:].reshape(P, 3)
         kf1.Tcw = Tcw_opt[0].copy()

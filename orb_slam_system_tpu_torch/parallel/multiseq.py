@@ -34,6 +34,7 @@ from orb_slam_system_tpu_torch.ops.extractor import ORBExtractor
 from orb_slam_system_tpu_torch.ops.hamming import distance_matrix
 from orb_slam_system_tpu_torch.solvers.pose_opt import pose_optimization_batch
 from orb_slam_system_tpu_torch.utils.collectives import all_sum, require_group
+from orb_slam_system_tpu_torch.utils.metrics import span
 from orb_slam_system_tpu_torch.utils.precision import set_f32_policy
 
 MATCH_TH = 50        # JAX local_step's Hamming gate
@@ -129,9 +130,10 @@ def make_multiseq_step(height: int, width: int, n_features: int = 256,
         best = dist_m.gather(2, best_j[..., None])[..., 0]
         matched = best <= MATCH_TH
         X = pts.gather(1, best_j[..., None].expand(-1, -1, 3))
-        T, _, n_in = pose_optimization_batch(
-            Tcw0, X, xy, torch.ones_like(best, dtype=torch.float32),
-            matched, fx, fy, cx, cy, group=lm_group)
+        with span("track.pose_lm"):
+            T, _, n_in = pose_optimization_batch(
+                Tcw0, X, xy, torch.ones_like(best, dtype=torch.float32),
+                matched, fx, fy, cx, cy, group=lm_group)
         n_in, n_match = n_in.sum(), matched.sum()
         if mesh is not None:
             n_in = all_sum(all_sum(n_in, mesh.model_group), mesh.data_group)

@@ -1,27 +1,121 @@
-"""Structured metrics, stage timing, and profiling hooks.
+"""Per-frame telemetry and the port's host spans.
 
-Copy of orb_slam_system_tpu/utils/metrics.py (numpy-only) with the
-profiler hook moved from jax.profiler to torch.profiler.
+A span is a named stretch of host time, `<layer>.<stage>` (`system.frame`,
+`track.extract`, `track.pose_lm`, `mapping.local_ba`, `loop.detect_loop`,
+...). Each span
 
-The reference's observability is std::cout lines + per-run timing printed by
-the drivers (SURVEY.md §5). This subsystem upgrades that contract:
-  * per-frame structured records (state, keypoints, matches, inliers, map
-    sizes, per-stage milliseconds) emitted as JSON lines;
-  * stage timers as context managers;
-  * torch.profiler trace capture around a frame window for kernel-level
-    inspection on the card.
+  * while a torch profiler is active, opens a host-only range of its name
+    on the profiler's timeline: a CPU operation (`cpu_op`), which gets no
+    device-side record, so the trace places the span on the device's clock
+    without counting it as device work;
+  * adds its inclusive host ms and one call to this thread's per-frame
+    account, which System takes into each frame's telemetry record
+    (`spans`: {name: [ms, calls]}, every span since the thread's last
+    record).
+
+No span synchronizes the device, records a CUDA event or reads anything
+back: the device's side of a span comes from the trace. With no profiler
+active a span costs a flag check, two clock reads and a dict update.
+`fetch` is the one blocking device->host copy of the tracking, mapping and
+loop-closing paths, a span of its own (`<layer>.fetch`), so the time the
+host waits for the card is told apart from its own work.
+
+StageTimer gives a layer's named stages their spans and keeps, per stage,
+its total ms and a bounded per-call history.
 """
 
 from __future__ import annotations
 
-import contextlib
-import json
+import threading
 import time
-from typing import Optional, TextIO
+from collections import deque
+
+import numpy as np
+import torch
+from torch.autograd import profiler as _profiler
+
+# A host-only profiler range (a cpu_op event). torch.profiler.record_function
+# is not used: its user annotation gets a device-side copy under CUDA
+# activity, which the trace would count as a device operation.
+_Range = getattr(torch._C._profiler, "_RecordFunctionFast", None)
+
+_local = threading.local()
+
+
+def _account() -> dict:
+    try:
+        return _local.spans
+    except AttributeError:
+        _local.spans = acc = {}
+        return acc
+
+
+def take_spans() -> dict:
+    """This thread's spans since its last take, {name: [ms, calls]}; the
+    account starts again empty."""
+    acc = _account()
+    _local.spans = {}
+    return acc
+
+
+class _Span:
+    """One span (module docstring); `timer` also gets its stage's ms."""
+
+    __slots__ = ("_name", "_timer", "_stage", "_range", "_t0")
+
+    def __init__(self, name: str, timer=None, stage=None):
+        self._name = name
+        self._timer = timer
+        self._stage = stage
+
+    def __enter__(self):
+        if _profiler._is_profiler_enabled and _Range is not None:
+            self._range = _Range(self._name)
+            self._range.__enter__()
+        else:
+            self._range = None
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        ms = (time.perf_counter() - self._t0) * 1e3
+        if self._range is not None:
+            self._range.__exit__(*exc)
+        acc = _account()
+        entry = acc.get(self._name)
+        if entry is None:
+            acc[self._name] = [ms, 1]
+        else:
+            entry[0] += ms
+            entry[1] += 1
+        if self._timer is not None:
+            self._timer._add(self._stage, ms)
+        return False
+
+
+def span(name: str) -> _Span:
+    """A span for code with no StageTimer of its own (the frame builder,
+    the tracking programs); `name` is the full `<layer>.<stage>`."""
+    return _Span(name)
+
+
+_FETCH = {}
+
+
+def fetch(t: torch.Tensor, layer: str) -> np.ndarray:
+    """t copied to the host as numpy, inside the span `<layer>.fetch`: the
+    copy waits for the work queued before it."""
+    name = _FETCH.get(layer)
+    if name is None:
+        name = _FETCH[layer] = layer + ".fetch"
+    with _Span(name):
+        return t.cpu().numpy()
 
 
 class StageTimer:
-    """Accumulates wall-clock per named stage within a frame.
+    """The named stages of one layer (`prefix`: "track", "mapping",
+    "loop"): stage(name) is the span `<prefix>.<name>`, and adds to the
+    stage's total ms and per-call history (unprefixed keys).
 
     History is bounded (deque per stage): an open-ended run (live camera,
     serving) must not grow memory per frame. 4096 entries cover the
@@ -32,27 +126,26 @@ class StageTimer:
 
     HISTORY_CAP = 4096
 
-    def __init__(self):
+    def __init__(self, prefix: str):
+        self.prefix = prefix
+        self._names: dict[str, str] = {}
         self.ms: dict[str, float] = {}
         # Per-invocation history (one float per stage call) so growth of a
         # stage's cost with map size is measurable, not just the total.
-        from collections import deque
-        self._deque = deque
-        self.history: dict[str, "deque[float]"] = {}
+        self.history: dict[str, deque] = {}
 
-    @contextlib.contextmanager
-    def stage(self, name: str):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            dt = (time.perf_counter() - t0) * 1000.0
-            self.ms[name] = self.ms.get(name, 0.0) + dt
-            h = self.history.get(name)
-            if h is None:
-                h = self.history[name] = self._deque(
-                    maxlen=self.HISTORY_CAP)
-            h.append(dt)
+    def stage(self, name: str) -> _Span:
+        full = self._names.get(name)
+        if full is None:
+            full = self._names[name] = f"{self.prefix}.{name}"
+        return _Span(full, self, name)
+
+    def _add(self, name: str, ms: float):
+        self.ms[name] = self.ms.get(name, 0.0) + ms
+        h = self.history.get(name)
+        if h is None:
+            h = self.history[name] = deque(maxlen=self.HISTORY_CAP)
+        h.append(ms)
 
     def reset(self):
         self.ms = {}
@@ -60,60 +153,12 @@ class StageTimer:
 
 
 class Telemetry:
-    """Per-frame metric records; optional JSONL sink (headless dashboards).
+    """Per-frame metric records, kept in memory (System._record): state,
+    keypoints, inliers, map sizes, track_ms, mapping_ms and the frame's
+    spans."""
 
-    Record keys follow the plan in SURVEY.md §5: n_keypoints, n_matches,
-    n_inliers, state, ms/stage, map sizes.
-    """
-
-    def __init__(self, sink: Optional[TextIO] = None, jsonl_path: Optional[str] = None):
+    def __init__(self):
         self.records: list[dict] = []
-        self._sink = sink
-        self._file = open(jsonl_path, "w") if jsonl_path else None
 
     def emit(self, **fields):
         self.records.append(fields)
-        if self._sink is not None or self._file is not None:
-            line = json.dumps(fields, default=float)
-            if self._sink is not None:
-                self._sink.write(line + "\n")
-            if self._file is not None:
-                self._file.write(line + "\n")
-                self._file.flush()
-
-    def close(self):
-        if self._file is not None:
-            self._file.close()
-            self._file = None
-
-    def summary(self) -> dict:
-        """Median/mean of numeric fields across frames (the reference
-        drivers' exit report, generalized)."""
-        import numpy as np
-        if not self.records:
-            return {}
-        out = {}
-        keys = set()
-        for r in self.records:
-            keys.update(k for k, v in r.items() if isinstance(v, (int, float)))
-        for k in sorted(keys):
-            vals = np.asarray([r[k] for r in self.records if k in r], float)
-            if len(vals):
-                out[k] = {"median": float(np.median(vals)),
-                          "mean": float(vals.mean())}
-        return out
-
-
-@contextlib.contextmanager
-def profiler_trace(path: str):
-    """Capture a torch.profiler trace (CPU + CUDA activity) around a code
-    region and write it as a Chrome trace to `path` — kernel-level
-    visibility for the hot path."""
-    from torch.profiler import ProfilerActivity, profile
-    import torch
-    acts = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        acts.append(ProfilerActivity.CUDA)
-    with profile(activities=acts) as prof:
-        yield prof
-    prof.export_chrome_trace(path)

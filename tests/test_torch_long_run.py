@@ -226,7 +226,7 @@ def test_gba_runner_matches_jax_across_cutover(rng, monkeypatch, n_cams,
     jrunner._solve((jprob, kf_ids, mp_ids, old), jcam,
                    dense_max_cams=jloop_closing.GBA_DENSE_MAX_CAMS)
     _, _, _, jT, jX = jrunner.take_result()
-    runner = loop_closing.GBARunner(StageTimer())
+    runner = loop_closing.GBARunner(StageTimer("loop"))
     runner._solve((ba_problem_from_numpy(jprob, "cpu"), kf_ids, mp_ids), cam)
     r_kf, r_mp, T, Xn = runner.take_result()
 

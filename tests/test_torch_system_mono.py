@@ -162,13 +162,13 @@ def test_reset_reinitializes():
 
 def test_telemetry_matches_jax(port_run, jax_run):
     """Each frame's record has the JAX System's keys in its order, then the
-    port's loops and gba_applied; n_keypoints equals the JAX System's on
+    port's loops, gba_applied and spans; n_keypoints equals the JAX System's on
     every frame (the host copy's count, or the last device step's)."""
     slam, _, _ = port_run
     jslam = jax_run[0]
     recs, jrecs = slam.telemetry.records, jslam.telemetry.records
     assert len(recs) == len(jrecs) == N_FRAMES
     for r, jr in zip(recs, jrecs):
-        assert list(r) == list(jr) + ["loops", "gba_applied"]
+        assert list(r) == list(jr) + ["loops", "gba_applied", "spans"]
     assert [r["n_keypoints"] for r in recs] == [r["n_keypoints"] for r in jrecs]
     assert all(r["n_keypoints"] > 0 for r in recs[3:])
