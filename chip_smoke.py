@@ -5,7 +5,7 @@
 
 Phases, each of which fails the run (exit code != 0) when it fails:
   1. print the card's name and power limit (nvidia-smi) and torch's CUDA;
-  2. build the four CUDA kernels from orb_slam_system_tpu_torch/csrc (one
+  2. build the five CUDA kernels from orb_slam_system_tpu_torch/csrc (one
      nvcc per source, in parallel);
   3. hold each kernel against its plain PyTorch version on the card, at the
      slice's shapes (all 8 pyramid levels of a rendered 640x480 frame, in
@@ -26,7 +26,10 @@ Phases, each of which fails the run (exit code != 0) when it fails:
      depth at its true pose, frames 1-29 tracked through FrameBuilder.build
      and fused_track_step; check frames accepted, pose error against
      ground truth, and frame 0's features on the card against the port's
-     CPU path;
+     CPU path; then hold kernel E (the pose LM, csrc/pose_lm.cu) against
+     the plain `_lm` on the same card tensors, the slice's LM inputs at
+     1024 slots from two starts (pose atol 1e-4, equal inlier masks and
+     counts), and time both;
   5. run the System (the main path): System.track_monocular over a
      60-frame 640x480 orbit through drivers/mono_synthetic.run: two-view
      initialization on the 2048-slot builder, keyframes, local mapping;
@@ -36,7 +39,7 @@ Phases, each of which fails the run (exit code != 0) when it fails:
      > 150 map points, ATE < 3 cm) plus >= 90% of the frames after
      initialization tracked, that every kernel of the path launched
      (kernel A and kernel B's describe mode once per frame build, kernel C
-     never), and that place recognition became ready (the vocabulary
+     never, kernel E once per track.pose_lm span call), and that place recognition became ready (the vocabulary
      self-trained) with every live keyframe's BoW and nodes in the keyframe
      database;
   6. relocalization at full width on phase 5's System: with the state
@@ -579,6 +582,63 @@ def describe_bound(n_read: int, xy, pb_side: int):
     ops_pass1 = 2 * 7 * pb_side * 43
     return bound_ms(4.0 * (n_read + xy.numel() + 11 * n_kp),
                     n_kp * (ops_pass1 + 2 * 7 * 512 + 4 * 749) + 3.0 * 256 * n_kp)
+
+
+def check_kernel_e(torch, dev, Tcw, Xw, obs, inv_s2, ok, ur, cam,
+                   card) -> dict:
+    """Kernel E (csrc/pose_lm.cu) against the plain `_lm` on the same card
+    tensors at the main path's shape, phase 4's LM inputs (1,024 slots),
+    from the frame's own pose and from a start 2 cm and ~0.6 degrees off
+    it: pose atol 1e-4, equal inlier masks and counts. Returns its report
+    entry, with call, device and plain ms and its bound."""
+    from orb_slam_system_tpu_torch.solvers import pose_opt
+    f32 = torch.float32
+    Xw, obs, inv_s2, ur = (t.to(f32).contiguous() for t in (Xw, obs, inv_s2,
+                                                            ur))
+    ok = ok.contiguous()
+    c, s = np.cos(0.01), np.sin(0.01)
+    off = np.eye(4, dtype=np.float32)
+    off[:2, :2] = [[c, -s], [s, c]]
+    off[:3, 3] = 0.02 / np.sqrt(3.0)
+    starts = (Tcw.to(f32).contiguous(), torch.from_numpy(off).to(dev) @ Tcw)
+    lens = (cam.fx, cam.fy, cam.cx, cam.cy)
+    err = 0.0
+    for start in starts:
+        kT, k_in, k_n = pose_opt.pose_lm(start, Xw, obs, ur, inv_s2, ok,
+                                         *lens, cam.bf)
+        pT, p_in, p_n = pose_opt._lm(start, Xw, obs, inv_s2, ok, *lens, ur,
+                                     cam.bf, 4, 10, None)
+        e = float((kT - pT).abs().max())
+        if not e <= 1e-4 or not torch.equal(k_in, p_in) or not torch.equal(
+                k_n, p_n):
+            fail(f"kernel E against the plain LM: pose error {e:.3g}, "
+                 f"{int((k_in != p_in).sum())} inlier flags differ, "
+                 f"{int(k_n)} vs {int(p_n)} inliers")
+        err = max(err, e)
+    run_e = lambda: pose_opt.pose_lm(starts[1], Xw, obs, ur, inv_s2, ok,
+                                     *lens, cam.bf)
+    ms_e = cuda_ms(torch, run_e)
+    dev_e = device_ms(torch, run_e, "pose_lm_kernel")
+    plain_e = cuda_ms(torch, lambda: pose_opt._lm(
+        starts[1], Xw, obs, inv_s2, ok, *lens, ur, cam.bf, 4, 10, None), 3)
+    n = Xw.shape[0]
+    # The edges (7 floats and a flag) and the pose read once, the pose,
+    # flags and count written once; per edge and iteration ~294 operations
+    # (the residual and Jacobian, 27 weighted sums, the trial residual),
+    # ~38 a reclassification.
+    bound = bound_ms(4.0 * 7 * n + 2 * n + 4.0 * 32 + 8,
+                     float(n) * (294 * 40 + 38 * 4))
+    print(f"kernel E pose_lm at {n} slots: agrees with the plain LM (pose "
+          f"error {err:.3g}, masks and counts equal) from the true pose and "
+          f"from a start 2 cm off; call {ms_e:.4f} ms, device {dev_e:.4f} ms "
+          f"({1e3 * dev_e / 40:.2f} us an iteration; plain {plain_e:.4f} ms), "
+          f"bound {bound[0]:.5f} ms ({bound[1]}): the serial chain of 40 "
+          f"iterations, each two passes, two block reductions and a 6x6 "
+          f"solve, holds it; {card}", flush=True)
+    return dict(source="orb_slam_system_tpu_torch/csrc/pose_lm.cu",
+                replaces=None, max_abs_err=err, ms=ms_e, device_ms=dev_e,
+                plain_ms=plain_e, bound=bound, library_ms=None, slots=n,
+                iterations=40)
 
 
 def orbvoc_shaped_tree(Vocabulary, k: int = 10, L: int = 6, seed: int = 0):
@@ -2817,6 +2877,7 @@ def main() -> None:
         from orb_slam_system_tpu_torch.ops.pyramid import build_pyramid
         from orb_slam_system_tpu_torch.solvers import local_ba, pnp, pose_graph, sim3
         from orb_slam_system_tpu_torch.utils import kernels
+        from orb_slam_system_tpu_torch.utils.metrics import take_spans
         from orb_slam_system_tpu_torch.vocab.vocabulary import Vocabulary
     except ImportError as e:
         fail(f"the port does not import (run from the repository root): {e}")
@@ -3144,11 +3205,15 @@ def main() -> None:
     torch.cuda.synchronize()
     profile_device(torch, "one pose optimization (4x10 LM, 1024 edges)", lm,
                    1e3 * (time.perf_counter() - t0))
+    report["pose_lm"] = check_kernel_e(torch, dev, Tcw, Xw, obs, inv_s2, ok,
+                                       mono, cam, card)
 
     phases_done(4)
-    # 5. The System, the main path; the counters count only this phase.
+    # 5. The System, the main path; the counters and this thread's spans
+    # count only this phase.
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
+    take_spans()
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as out_dir:
         slam, ate = mono_synthetic.run(SYSTEM_FRAMES, out_dir, 1000, W, H,
@@ -3190,6 +3255,12 @@ def main() -> None:
             for k, v in sorted(timer.ms.items()))
         print(f"system {label} stages: {stages}", flush=True)
     print(f"launches in the system run: {system_launches}", flush=True)
+    lm_calls = sum(r["spans"].get("track.pose_lm", [0.0, 0])[1] for r in recs)
+    print(f"pose LMs in the system run: {lm_calls} track.pose_lm span calls, "
+          f"{system_launches['pose_lm']} launches of kernel E", flush=True)
+    if lm_calls == 0 or system_launches["pose_lm"] != lm_calls:
+        fail(f"the system run made {lm_calls} pose LMs and launched kernel E "
+             f"{system_launches['pose_lm']} times")
     mapper = slam.local_mapper
     kf = slam.arena.kfs[max(slam.arena.kfs)]
     mapper.insert_keyframe(kf.id)
@@ -3265,13 +3336,14 @@ def main() -> None:
                 ms=r["ms"], device_ms=r["device_ms"], plain_ms=r["plain_ms"],
                 bound_ms=r["bound"][0], bound_by=r["bound"][1])
 
-    # Launches of each kernel on the path that runs it: the System for A and
-    # B (its describe mode), the extractor's unfused route for C and D.
+    # Launches of each kernel on the path that runs it: the System for A,
+    # B (its describe mode) and E, the extractor's unfused route for C and D.
     path_launches = dict(
         fast_score_nms=system_launches["fast_score_nms"],
         gather_blur_moments=system_launches["gather_blur_describe"],
         brief_pack=unfused_launches["brief_pack"],
-        gather_patches=unfused_launches["gather_patches"])
+        gather_patches=unfused_launches["gather_patches"],
+        pose_lm=system_launches["pose_lm"])
     by_phase = {"unfused_route": unfused_launches, "slice": launches,
                 "system": system_launches, "relocalization": reloc["launches"],
                 "loop": loop["launches"], "stereo": stereo["launches"],
@@ -3292,7 +3364,8 @@ def main() -> None:
                 "dryrun": sharded["dryrun"]["launches"]}
     counter = dict(fast_score_nms="fast_score_nms",
                    gather_blur_moments="gather_blur_describe",
-                   brief_pack="brief_pack", gather_patches="gather_patches")
+                   brief_pack="brief_pack", gather_patches="gather_patches",
+                   pose_lm="pose_lm")
     print(json.dumps({"relocalization": reloc}), flush=True)
     print(json.dumps({"loop": loop}), flush=True)
     print(json.dumps({"stereo": stereo, "rgbd": rgbd}, default=str), flush=True)
@@ -3315,7 +3388,8 @@ def main() -> None:
          "launches_by_phase": {ph: c[counter[name]] for ph, c in by_phase.items()},
          **{k: r[k] for k in ("mode", "canvas_floats", "canvas_floats_read",
                               "blur_mode", "replaced_chain", "at_stereo_shape",
-                              "at_multiseq_shape") if k in r}}
+                              "at_multiseq_shape", "slots", "iterations")
+                   if k in r}}
         for name, r in report.items()]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -23,8 +23,14 @@ B's describe mode (patches.gather_blur_describe) where the checkout has it,
 else the chain gather_blur_moments -> angles_from_moments -> brief_pack;
 "kernels" is how many it launches per frame. "device_ms": the kernels' own
 device time per frame from torch.profiler; "call_ms": CUDA events around
-20 calls (not for A, whose calls sit inside detect). chip_smoke.py holds the kernels against their
-plain versions; this script only times them. Prints one JSON line with the
+20 calls (not for A, whose calls sit inside detect). The pose LM is timed on
+tracking's shape (1024 slots, 1000 matched, 10% of them outliers): kernel E
+("pose_lm", one pose; "pose_lm_n2048", one pose at 2048 slots, 2000
+matched; "pose_lm_s5", five through pose_optimization_batch)
+where the checkout has it, and the eager `_lm` on the card ("pose_lm_plain",
+call ms over 3 calls) in every checkout. chip_smoke.py and
+tests/test_torch_cuda.py hold the kernels against their plain versions;
+this script only times them. Prints one JSON line with the
 card's name and power limit; exits non-zero without CUDA.
 """
 
@@ -40,6 +46,31 @@ import numpy as np
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, HERE)
 from chip_smoke import cuda_ms, device_ms, fail, stage_device_ms  # noqa: E402
+
+
+def pose_problem(rng, S: int, N: int = 1024, n_valid: int = 1000):
+    """S pose LMs as tracking poses them, as numpy (T0, Xw, obs,
+    inv_sigma2, valid): N slots, the first n_valid matched to points 2-10 m
+    ahead with 0.5 px noise, 10% of those 20-80 px off, octaves 0-7, a
+    start 2 cm and ~0.6 degrees off the true pose (identity)."""
+    fx = fy = 517.306
+    cx, cy = 318.643, 255.314
+    X = np.stack([rng.uniform(-3, 3, (S, N)), rng.uniform(-2, 2, (S, N)),
+                  rng.uniform(2, 10, (S, N))], -1).astype(np.float32)
+    uv = np.stack([fx * X[..., 0] / X[..., 2] + cx,
+                   fy * X[..., 1] / X[..., 2] + cy], -1)
+    uv += rng.normal(0, 0.5, uv.shape)
+    out = rng.uniform(size=(S, N)) < 0.1
+    uv[out] += rng.uniform(20, 80, (int(out.sum()), 2))
+    inv_s2 = 1.0 / 1.2 ** (2 * rng.integers(0, 8, (S, N)))
+    valid = np.zeros((S, N), bool)
+    valid[:, :n_valid] = True
+    T0 = np.tile(np.eye(4, dtype=np.float32), (S, 1, 1))
+    T0[:, :3, 3] = 0.02 / np.sqrt(3)
+    c, s = np.cos(0.01), np.sin(0.01)
+    T0[:, :2, :2] = [[c, -s], [s, c]]
+    return (T0, X, uv.astype(np.float32), inv_s2.astype(np.float32), valid,
+            (fx, fy, cx, cy))
 
 
 def main() -> None:
@@ -114,6 +145,31 @@ def main() -> None:
     stage_ms, n_kernels = stage_device_ms(torch, stage)
     times["describe_stage"] = dict(call_ms=cuda_ms(torch, stage),
                                    device_ms=stage_ms, kernels=n_kernels)
+
+    from orb_slam_system_tpu_torch.solvers import pose_opt
+    for name, S, N in (("pose_lm", 1, 1024), ("pose_lm_n2048", 1, 2048),
+                       ("pose_lm_s5", 5, 1024)):
+        *arrays, cam = pose_problem(np.random.default_rng(0), S, N,
+                                    N * 1000 // 1024)
+        T0, X, uv, inv_s2, valid = (torch.from_numpy(a).to(dev)
+                                    for a in arrays)
+        if S == 1:
+            T0, X, uv, inv_s2, valid = (a[0] for a in (T0, X, uv, inv_s2,
+                                                       valid))
+            lm = lambda: pose_opt.pose_optimization(T0, X, uv, inv_s2, valid,
+                                                    *cam)
+            if N == 1024:
+                plain = lambda: pose_opt._lm(T0, X, uv, inv_s2, valid, *cam,
+                                             None, 0.0, 4, 10, None)
+                times["pose_lm_plain"] = dict(call_ms=cuda_ms(torch, plain,
+                                                              3))
+        else:
+            lm = lambda: pose_opt.pose_optimization_batch(T0, X, uv, inv_s2,
+                                                          valid, *cam)
+        if hasattr(pose_opt, "pose_lm"):
+            times[name] = dict(call_ms=cuda_ms(torch, lm),
+                               device_ms=device_ms(torch, lm,
+                                                   "pose_lm_kernel"))
     print(json.dumps({"root": root, "card": card, "kernels": times}),
           flush=True)
 

@@ -26,13 +26,22 @@ solves the same pose. The sums run on the [..., 6, 6] / [..., 6] normal
 equations and [...] costs of every pose at once, once per iteration
 (parallel/multiseq.py's sharded step), since a collective cannot run under
 torch.func.vmap.
+
+On the card, without a group, every round of every pose runs in one launch
+of the hand-written kernel csrc/pose_lm.cu (`pose_lm`; one thread block a
+pose), which the eager loop's 10,644 launches a pose left host-bound. The
+eager `_lm` is its plain version: it serves CPU tensors, which the tests
+hold against JAX, and any group, whose collectives run between iterations
+where a kernel cannot make them.
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
 
-from orb_slam_system_tpu_torch.utils import lie
+from orb_slam_system_tpu_torch.utils import kernels, lie
 from orb_slam_system_tpu_torch.utils.collectives import all_sum
 from orb_slam_system_tpu_torch.utils.precision import set_f32_policy
 
@@ -100,8 +109,8 @@ def pose_optimization(Tcw0, Xw, obs, inv_sigma2, valid, fx, fy, cx, cy,
     right-column residuals. Points behind the camera are outliers. With a
     group, this rank's N edges are its share of the pose's (H, g and the
     costs summed over the group); inlier and n_inliers stay this rank's."""
-    return _lm(Tcw0, Xw, obs, inv_sigma2, valid, fx, fy, cx, cy, obs_ur, bf,
-               n_rounds, n_iters, group)
+    return _solve(Tcw0, Xw, obs, inv_sigma2, valid, fx, fy, cx, cy, obs_ur,
+                  bf, n_rounds, n_iters, group)
 
 
 def pose_optimization_batch(Tcw0, Xw, obs, inv_sigma2, valid, fx, fy, cx, cy,
@@ -114,8 +123,71 @@ def pose_optimization_batch(Tcw0, Xw, obs, inv_sigma2, valid, fx, fy, cx, cy,
     products. With a group, each rank holds its share of every pose's N
     edges (module docstring)."""
     set_f32_policy()
-    return _lm(Tcw0, Xw, obs, inv_sigma2, valid, fx, fy, cx, cy, None, 0.0,
-               4, 10, group)
+    return _solve(Tcw0, Xw, obs, inv_sigma2, valid, fx, fy, cx, cy, None,
+                  0.0, 4, 10, group)
+
+
+def _takes_kernel(Xw: torch.Tensor, group) -> bool:
+    """CUDA tensors without a group take the kernel; the rest `_lm`."""
+    return Xw.is_cuda and group is None
+
+
+def _solve(Tcw0, Xw, obs, inv_sigma2, valid, fx, fy, cx, cy, obs_ur, bf,
+           n_rounds: int, n_iters: int, group):
+    """The rounds of LM: one `pose_lm` launch, else the eager `_lm`."""
+    if not _takes_kernel(Xw, group):
+        return _lm(Tcw0, Xw, obs, inv_sigma2, valid, fx, fy, cx, cy, obs_ur,
+                   bf, n_rounds, n_iters, group)
+    f32 = torch.float32
+    return pose_lm(
+        Tcw0.to(f32).contiguous(), Xw.to(f32).contiguous(),
+        obs.to(f32).contiguous(),
+        None if obs_ur is None else obs_ur.to(f32).contiguous(),
+        inv_sigma2.to(f32).contiguous(), valid.to(torch.bool).contiguous(),
+        fx, fy, cx, cy, bf, n_rounds, n_iters)
+
+
+def pose_lm(Tcw0, Xw, obs, obs_ur, inv_sigma2, valid, fx, fy, cx, cy, bf=0.0,
+            n_rounds: int = 4, n_iters: int = 10):
+    """`_lm` without a group in one launch of kernel E (csrc/pose_lm.cu),
+    one thread block per pose over the leading axes: Tcw0 f32[...,4,4], Xw
+    f32[...,N,3], obs f32[...,N,2], obs_ur f32[...,N] or None (every edge
+    monocular), inv_sigma2 f32[...,N], valid bool[...,N], all contiguous on
+    one CUDA device -> (Tcw f32[...,4,4], inlier bool[...,N], n_inliers
+    i64[...]). Raises on any other input before the library is built."""
+    lead = tuple(Tcw0.shape[:-2])
+    L = len(lead)
+    args = [(Tcw0, "Tcw0", torch.float32, L + 2),
+            (Xw, "Xw", torch.float32, L + 2),
+            (obs, "obs", torch.float32, L + 2),
+            (inv_sigma2, "inv_sigma2", torch.float32, L + 1),
+            (valid, "valid", torch.bool, L + 1)]
+    if obs_ur is not None:
+        args.append((obs_ur, "obs_ur", torch.float32, L + 1))
+    for t, name, dtype, ndim in args:
+        kernels.check_cuda(t, f"pose_lm {name}", dtype, ndim)
+    N = Xw.shape[-2]
+    want = {"Tcw0": lead + (4, 4), "Xw": lead + (N, 3), "obs": lead + (N, 2),
+            "obs_ur": lead + (N,), "inv_sigma2": lead + (N,),
+            "valid": lead + (N,)}
+    for t, name, _dtype, _ndim in args:
+        if tuple(t.shape) != want[name] or t.device != Tcw0.device:
+            raise ValueError(f"pose_lm: {name} {tuple(t.shape)} on {t.device};"
+                             f" expected {want[name]} on {Tcw0.device}")
+    if n_rounds < 0 or n_iters < 0:
+        raise ValueError(f"pose_lm: {n_rounds} rounds of {n_iters} iterations")
+    T = torch.empty_like(Tcw0)
+    inlier = torch.empty(lead + (N,), dtype=torch.bool, device=Xw.device)
+    n_in = torch.empty(lead, dtype=torch.int64, device=Xw.device)
+    kernels.launch("orb_pose_lm", "pose_lm", Tcw0.data_ptr(), Xw.data_ptr(),
+                   obs.data_ptr(),
+                   None if obs_ur is None else obs_ur.data_ptr(),
+                   inv_sigma2.data_ptr(), valid.data_ptr(), T.data_ptr(),
+                   inlier.data_ptr(), n_in.data_ptr(), math.prod(lead), N,
+                   int(n_rounds), int(n_iters), float(fx), float(fy),
+                   float(cx), float(cy), float(bf), CHI2_MONO, CHI2_STEREO,
+                   HUBER_DELTA_MONO, HUBER_DELTA_STEREO)
+    return T, inlier, n_in
 
 
 def _lm(Tcw0, Xw, obs, inv_sigma2, valid, fx, fy, cx, cy, obs_ur, bf,

@@ -34,10 +34,12 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-fmad=false"]
 
 LAUNCHES = {"fast_score_nms": 0, "gather_blur_moments": 0,
-            "gather_blur_describe": 0, "brief_pack": 0, "gather_patches": 0}
+            "gather_blur_describe": 0, "brief_pack": 0, "gather_patches": 0,
+            "pose_lm": 0}
 
 _VP = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 # C entry points: name -> argtypes (every function returns cudaError_t).
 _SIGNATURES = {
     "orb_fast_score_nms": [_VP, _I, _VP],   # (FastLevels*, B, stream)
@@ -47,6 +49,10 @@ _SIGNATURES = {
                                  _I, _I, _I, _I, _I, _VP],
     "orb_brief_pack": [_VP, _VP, _VP, _VP, _I, _VP],
     "orb_gather_patches": [_VP, _VP, _VP, _I, _I, _I, _I, _I, _VP],
+    # (T0, Xw, obs, obs_ur, inv_sigma2, valid, T, inlier, n_inliers, B, N,
+    #  n_rounds, n_iters, fx, fy, cx, cy, bf, chi2_mono, chi2_stereo,
+    #  huber_mono, huber_stereo, stream)
+    "orb_pose_lm": [_VP] * 9 + [_I] * 4 + [_F] * 9 + [_VP],
 }
 
 _lib = None

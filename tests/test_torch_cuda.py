@@ -4,7 +4,8 @@ the card against the CPU (the chain step under CUDA's sync debug mode),
 with one loop closed, one stereo run and one async + pipelined monocular
 run tracked on the card; the multi-sequence mode's batch-5 pack and
 batched front-end step on the card; the sharded solvers on NCCL ranks and
-the warm pass on the card.
+the warm pass on the card; the pose LM kernel against the eager LM on the
+card.
 
 Marked `cuda`: they skip without a GPU (a CUDA kernel has no CPU mode).
 Run them on a machine with an NVIDIA GPU and nvcc (--noconftest: the
@@ -154,7 +155,7 @@ def test_fused_route_launches_describe_once(dev):
     torch.cuda.synchronize()
     assert kernels.LAUNCHES == {"fast_score_nms": 1, "gather_blur_moments": 0,
                                 "gather_blur_describe": 1, "brief_pack": 0,
-                                "gather_patches": 0}
+                                "gather_patches": 0, "pose_lm": 0}
 
 
 def test_brief_pack_bit_exact(dev, rng):
@@ -840,3 +841,166 @@ def test_warm_pass_on_the_card(dev):
                           verbose=True, device="cuda")
     assert set(seconds) == {m for m, _, _ in warmup.MODES}
     assert any(p.name == "liborb_kernels.so" for p in warmup.built_libraries())
+
+
+# ---- kernel E: the pose LM (csrc/pose_lm.cu) against the eager `_lm` ----
+
+PFX = PFY = 500.0
+PCX, PCY = 320.0, 240.0
+PBF = 40.0
+
+
+def _pose_problem(rng, N=160, stereo=False, n_out=20):
+    """tests/test_torch_pose_opt.py's _problem at N edges: points 4-10 m
+    ahead, 0.5 px noise, n_out outliers 20-80 px off, half the edges stereo
+    when asked, 5% invalid, a start 0.03 off the true pose."""
+    from orb_slam_system_tpu_torch.utils.lie import se3_exp
+    X = np.stack([rng.uniform(-3, 3, N), rng.uniform(-2, 2, N),
+                  rng.uniform(4, 10, N)], axis=1).astype(np.float32)
+    T_true = se3_exp(torch.from_numpy(
+        (rng.normal(size=6) * [0.2, 0.2, 0.2, 0.05, 0.05, 0.05]).astype(np.float32))).numpy()
+    Xc = X @ T_true[:3, :3].T + T_true[:3, 3]
+    uv = np.stack([PFX * Xc[:, 0] / Xc[:, 2] + PCX,
+                   PFY * Xc[:, 1] / Xc[:, 2] + PCY], axis=1)
+    uv = (uv + rng.normal(size=uv.shape) * 0.5).astype(np.float32)
+    out = rng.choice(N, size=n_out, replace=False)
+    uv[out] += rng.uniform(20, 80, size=(n_out, 2)).astype(np.float32)
+    ur = np.full(N, -1.0, np.float32)
+    if stereo:
+        st = rng.uniform(size=N) < 0.5
+        ur[st] = (uv[st, 0] - PBF / Xc[st, 2]
+                  + rng.normal(size=st.sum()) * 0.5).astype(np.float32)
+    inv_s2 = (1.0 / 1.2 ** (2 * rng.integers(0, 4, N))).astype(np.float32)
+    valid = rng.uniform(size=N) < 0.95
+    dxi = (rng.normal(size=6) * 0.03).astype(np.float32)
+    T0 = (se3_exp(torch.from_numpy(dxi)).numpy() @ T_true).astype(np.float32)
+    return [T0, X, uv, inv_s2, valid, ur]
+
+
+def _pose_case(case):
+    """(numpy T0, Xw, obs, inv_sigma2, valid, obs_ur or None) of a case."""
+    rng = np.random.default_rng(7)
+    if case == "batch5":
+        probs = [_pose_problem(rng, 1024, n_out=100) for _ in range(5)]
+        p = [np.stack(a) for a in zip(*probs)]
+        p[5] = None
+        return p
+    N = {"mono": 160, "stereo": 160, "n1024_invalid_tail": 1024,
+         "n2048": 2048, "n333": 333, "n10000": 10000, "all_invalid": 300,
+         "behind_camera": 300}[case]
+    p = _pose_problem(rng, N, stereo=case in ("stereo", "n1024_invalid_tail"),
+                      n_out=N // 10)
+    if case == "n1024_invalid_tail":
+        p[4][1000:] = False
+        p[1][1000:] = 0.0
+    elif case == "all_invalid":
+        p[4][:] = False
+    elif case == "behind_camera":
+        p[1][:60, 2] *= -1.0
+    return p
+
+
+def _pose_args(dev, p):
+    return [None if a is None else torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+            for a in p]
+
+
+def _pose_lm_call(dev, p):
+    from orb_slam_system_tpu_torch.solvers import pose_opt
+    T0, X, uv, inv_s2, valid, ur = _pose_args(dev, p)
+    if T0.dim() == 3:
+        return pose_opt.pose_optimization_batch(T0, X, uv, inv_s2, valid,
+                                                PFX, PFY, PCX, PCY)
+    return pose_opt.pose_optimization(T0, X, uv, inv_s2, valid, PFX, PFY,
+                                      PCX, PCY, obs_ur=ur, bf=PBF)
+
+
+@pytest.mark.parametrize("case", ["mono", "stereo", "batch5",
+                                  "n1024_invalid_tail", "n2048", "n333",
+                                  "n10000", "all_invalid", "behind_camera"])
+def test_pose_lm_kernel_matches_eager_lm(dev, case):
+    """pose_optimization(_batch) on the card takes kernel E once a call and
+    agrees with the eager `_lm` on the card: pose atol 1e-4 (the tolerance
+    of tests/test_torch_pose_opt.py), equal inlier masks and counts. With
+    every edge invalid the pose is returned unchanged and no edge counts.
+    N = 10,000 edges, ten times tracking's, shows that no N is refused."""
+    from orb_slam_system_tpu_torch.solvers import pose_opt
+    from orb_slam_system_tpu_torch.utils import kernels
+    p = _pose_case(case)
+    before = kernels.LAUNCHES["pose_lm"]
+    T, inl, n = _pose_lm_call(dev, p)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["pose_lm"] == before + 1
+    T0, X, uv, inv_s2, valid, ur = _pose_args(dev, p)
+    bf = PBF if ur is not None else 0.0
+    Te, inle, ne = pose_opt._lm(T0, X, uv, inv_s2, valid, PFX, PFY, PCX, PCY,
+                                ur, bf, 4, 10, None)
+    assert T.device == T0.device and T.dtype == torch.float32
+    assert T.shape == T0.shape
+    assert inl.dtype == torch.bool and n.dtype == torch.int64
+    np.testing.assert_allclose(T.cpu().numpy(), Te.cpu().numpy(), rtol=0,
+                               atol=1e-4)
+    assert torch.equal(inl, inle) and torch.equal(n, ne)
+    if case == "all_invalid":
+        assert torch.equal(T, T0) and int(n) == 0
+    else:
+        assert (n > 0).all()
+
+
+@pytest.mark.parametrize("case", ["mono", "stereo", "batch5"])
+def test_pose_lm_kernel_matches_jax(dev, case):
+    """Kernel E on the card against the JAX package's answer to the same
+    inputs (tests/golden/pose_lm_jax.npz, written and kept current on the
+    CPU by tests/test_torch_pose_opt.py): pose atol 1e-4, equal inlier
+    masks and counts."""
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden",
+                        "pose_lm_jax.npz")
+    with np.load(path) as f:
+        ref = {k.split(".", 1)[1]: f[k] for k in f.files
+               if k.startswith(case + ".")}
+    p = [ref[k] for k in ("T0", "Xw", "obs", "inv_sigma2", "valid")]
+    T, inl, n = _pose_lm_call(dev, p + [ref.get("obs_ur")])
+    np.testing.assert_allclose(T.cpu().numpy(), ref["T"], rtol=0, atol=1e-4)
+    np.testing.assert_array_equal(inl.cpu().numpy(), ref["inlier"])
+    np.testing.assert_array_equal(n.cpu().numpy(), ref["n_inliers"])
+
+
+def test_pose_lm_kernel_no_sync_and_bit_equal_runs(dev):
+    """Kernel E reads nothing back to the host (CUDA's sync debug mode
+    "error" around the calls), and two runs are bit-equal (fixed-order
+    reductions, no atomics)."""
+    p = _pose_case("n1024_invalid_tail")
+    _pose_lm_call(dev, p)
+    args = [_pose_args(dev, p) for _ in range(2)]
+    torch.cuda.synchronize()
+    from orb_slam_system_tpu_torch.solvers import pose_opt
+    outs = []
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for T0, X, uv, inv_s2, valid, ur in args:
+            outs.append(pose_opt.pose_optimization(
+                T0, X, uv, inv_s2, valid, PFX, PFY, PCX, PCY, obs_ur=ur,
+                bf=PBF))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+
+
+def test_pose_lm_wrapper_checks_arguments(dev):
+    """The wrapper raises TypeError on a wrong dtype and ValueError on a
+    non-contiguous or misshapen input on the card."""
+    from orb_slam_system_tpu_torch.solvers import pose_opt
+    T0, X, uv, inv_s2, valid, ur = _pose_args(dev, _pose_case("mono"))
+    ok = dict(Tcw0=T0, Xw=X, obs=uv, obs_ur=ur, inv_sigma2=inv_s2,
+              valid=valid, fx=PFX, fy=PFY, cx=PCX, cy=PCY, bf=PBF)
+    with pytest.raises(TypeError):
+        pose_opt.pose_lm(**{**ok, "Xw": X.double()})
+    with pytest.raises(TypeError):
+        pose_opt.pose_lm(**{**ok, "valid": valid.to(torch.uint8)})
+    with pytest.raises(ValueError):
+        pose_opt.pose_lm(**{**ok, "obs": uv.repeat(1, 2)[:, ::2]})
+    with pytest.raises(ValueError):
+        pose_opt.pose_lm(**{**ok, "inv_sigma2": inv_s2[:-1]})
