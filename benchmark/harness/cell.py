@@ -1,12 +1,14 @@
 """One run of one workload: set-up, the measured window, the check.
 
 Set-up lays out every camera's path and textured ground, builds the
-program's entry and hands in frames until the traffic's warm condition holds (the cameras
-initialized and tracking, the self-trained vocabulary built, the cell's
-shapes seen). The window then hands in the next frames in a closed loop
-(the next frame as soon as the last returned, as ORB-SLAM2's own
-mono_tum / mono_euroc drivers do whenever tracking is slower than the
-camera) for `seconds`, and the run reads the device's memory peak. Frames
+program's entry and hands in frames (with the right view or the depth
+image where the configuration's sensor gives one) until the traffic's warm
+condition holds (the cameras initialized and tracking, the self-trained
+vocabulary built, the cell's shapes seen). The window then hands in the
+next frames in a closed loop (the next frame as soon as the last returned,
+as ORB-SLAM2's own mono_tum / mono_euroc drivers do whenever tracking is
+slower than the camera) for `seconds`, and the run reads the device's
+memory peak. Frames
 are rendered a chunk at a time as the run reaches them; in the window the
 clock stops while a chunk renders, after the device has finished the
 program's work, so the window holds the program's time alone. Only
@@ -38,25 +40,40 @@ class RunContext:
 
 
 def slam_config(cfg: dict):
+    """The program's SlamConfig of a configuration: its camera (with
+    Camera.bf where it gives `bf`), ORB settings and sensor; `th_depth` is
+    ThDepth as a settings file gives it, converted to metres as the
+    program's load_settings does, and `depth_map_factor` DepthMapFactor."""
     from orb_slam_system_tpu_torch.config import (CameraConfig, ORBConfig,
-                                                  Sensor, SlamConfig)
+                                                  Sensor, SlamConfig,
+                                                  th_depth_metres)
     cam = cfg["camera"]
     camera = CameraConfig(**{k: cam[k] for k in (
-        "fx", "fy", "cx", "cy", "k1", "k2", "p1", "p2", "k3", "fps", "width",
-        "height")})
-    return SlamConfig(camera=camera, orb=ORBConfig(**cfg["orb"]),
-                      sensor=Sensor.MONOCULAR)
+        "fx", "fy", "cx", "cy", "k1", "k2", "p1", "p2", "k3", "bf", "fps",
+        "width", "height") if k in cam})
+    sensor = Sensor[scene.sensor_of(cfg).upper()]
+    depth = {}
+    if "th_depth" in cfg:
+        depth["th_depth"] = th_depth_metres(float(cfg["th_depth"]), camera, sensor)
+    if "depth_map_factor" in cfg:
+        depth["depth_map_factor"] = float(cfg["depth_map_factor"]) or 1.0
+    return SlamConfig(camera=camera, orb=ORBConfig(**cfg["orb"]), sensor=sensor,
+                      **depth)
 
 
 def end_to_end(name: str, frames: int, window_s: float, latencies, setup_s: float,
-               log) -> float:
+               log, meter=None) -> float:
     """fps: frames completed over the window's whole time; frame_ms_pNN:
     the NN-th percentile (nearest rank) of every window frame's time from
-    hand-in to returned pose; setup_s: process start to window start."""
+    hand-in to returned pose; setup_s: process start to window start;
+    kernel_ms_per_frame: the card's kernel time (the union of its kernels'
+    intervals, copies left out) over every window frame, per frame."""
     if name == "fps":
         return frames / window_s
     if name == "setup_s":
         return setup_s
+    if name == "kernel_ms_per_frame":
+        return 1e3 * meter.kernel_s / frames
     m = re.fullmatch(r"frame_ms_p(\d+)", name)
     if m is None:
         raise KeyError(f"no end-to-end metric {name!r}")
@@ -91,21 +108,27 @@ def run(root: str, workload: str, seed: int, seconds: int, trace: bool,
     np.random.seed(seed % 2 ** 32)
 
     # Frames: every camera's path and ground, rendered on the device as the
-    # run reaches them.
-    paths, frames = [], []
+    # run reaches them; a rig's second stream (right view or depth image)
+    # in the same chunks as its first. `second` names the entry's argument
+    # for it; of a camera's streams the program extracts the first
+    # n_extracted.
+    sensor = scene.sensor_of(cfg)
+    second = {"stereo": "right", "rgbd": "depth"}.get(sensor)
+    n_extracted = 2 if sensor == "stereo" else 1
+    paths, views = [], []
     for s in range(n_cams):
-        cam_seed = seed * 16 + s
-        poses, seg_of = scene.camera_path(traffic, cam, seconds, cam_seed)
-        r = scene.Renderer(cam, traffic, poses,
-                           scene.seed_generator(cam_seed, device), device)
-        frames.append(scene.FrameStream(r, poses))
+        poses, seg_of, streams = scene.camera_streams(cfg, traffic, seconds,
+                                                      seed * 16 + s, device)
+        views.append(streams)
         paths.append((poses, seg_of))
+    frames = [v[0] for v in views]
     seg_of = paths[0][1]
     n_frames = len(seg_of)
 
     def render_to(n):
-        for fs in frames:
-            fs.render_to(n)
+        for v in views:
+            for fs in v:
+                fs.render_to(n)
 
     render_to(1)
     print(f"{n_cams} x {n_frames} frames laid out by "
@@ -120,10 +143,16 @@ def run(root: str, workload: str, seed: int, seconds: int, trace: bool,
     systems = entry.systems
     fps_cam = float(cam["fps"])
     batch = np.empty((n_cams, int(cam["height"]), int(cam["width"])), np.uint8)
+    if second:
+        batch2 = np.empty_like(batch, dtype=views[0][1].frames.dtype)
 
     def hand_in(i):
         for s in range(n_cams):
             batch[s] = frames[s][i]
+            if second:
+                batch2[s] = views[s][1][i]
+        if second:
+            return entry.step(batch, i / fps_cam, **{second: batch2})
         return entry.step(batch, i / fps_cam)
 
     # Set-up: every segment but the last is handed in whole; the window
@@ -178,12 +207,22 @@ def run(root: str, workload: str, seed: int, seconds: int, trace: bool,
         the device finished the program's queued work), 0 if none was due."""
         if frames[0].ready >= n:
             return 0.0
+        # The kernel meter's session closes first: renders are not the
+        # program's kernels.
+        closed = meter.close() if meter is not None else 0.0
         if on_card:
             torch.cuda.synchronize()
         a = time.perf_counter()
         render_to(n)
-        return time.perf_counter() - a
+        return closed + time.perf_counter() - a
 
+    # An end-to-end metric on the device's clock: the whole window runs
+    # under the kernel meter's sessions (a traced run reads its per-layer
+    # metrics without it).
+    meter = None
+    if on_card and not trace and any(
+            m["source"] == "device_trace" for m in reg.end_to_end(workload)):
+        meter = tracing.KernelMeter(torch)
     launches0 = dict(program_kernels.LAUNCHES)
     t0 = time.perf_counter()
     while True:
@@ -197,20 +236,33 @@ def run(root: str, workload: str, seed: int, seconds: int, trace: bool,
             lo = i
             traced = tracing.profile_frames(
                 torch, lambda: [step(j) for j in range(lo, lo + n_trace)], n_trace)
-            traced_imgs = [np.stack([frames[s][j] for s in range(n_cams)])
+            # Every image the program extracts, a round's as one build's
+            # batch: a stereo pair's two views go through one launch.
+            traced_imgs = [np.stack([fs[j] for v in views for fs in v[:n_extracted]])
                            for j in range(lo, lo + n_trace)]
             i += n_trace
             if time.perf_counter() - t0 - paused >= seconds:
                 break
         else:
+            if meter is not None:
+                paused += meter.open()
             a = time.perf_counter()
             step(i)
             b = time.perf_counter()
             lat.append(b - a)
             i += 1
+            if meter is not None and meter.due():
+                paused += meter.close()
+                b = time.perf_counter()
             # A traced run's window lasts until its profiled frames are done.
             if b - t0 - paused >= seconds and (traced is not None or not n_trace):
                 break
+    if meter is not None:
+        paused += meter.close()
+        print(f"kernel meter: {meter.kernels} kernels on the card, {meter.launches} "
+              f"launched by the host, records lost {meter.records_lost}, "
+              f"{meter.sessions} sessions, {meter.kernel_s:.4f} s of kernels",
+              file=log, flush=True)
     window_s = time.perf_counter() - t0 - paused
     memory_peak = torch.cuda.max_memory_allocated() if on_card else 0
     n_window = len(poses_out)
@@ -219,8 +271,11 @@ def run(root: str, workload: str, seed: int, seconds: int, trace: bool,
     rng = np.random.default_rng([seed % 2 ** 63, 0xC4EC])
     n_check = min(int(traffic["check_frames"]), n_window)
     picks = sorted(rng.choice(n_window * n_cams, n_check, replace=False).tolist())
+    # A rig's packed rows add u_right and depth after the left or colour
+    # view's 16 columns.
     samples = [(frames[p % n_cams][poses_out[p // n_cams][0]],
-                feats[p // n_cams][p % n_cams].cpu().numpy()) for p in picks]
+                feats[p // n_cams][p % n_cams][:, :16].cpu().numpy())
+               for p in picks]
     del feats
     cameras = [([j for j, _p in poses_out], [p[s] for _j, p in poses_out],
                 paths[s][0]) for s in range(n_cams)]
@@ -234,9 +289,10 @@ def run(root: str, workload: str, seed: int, seconds: int, trace: bool,
         maps.append((kfs, pts, paths[s][0]))
     tel = [sy.telemetry.records[t:] for sy, t in zip(systems, tel0)]
     launches = {k: v - launches0[k] for k, v in program_kernels.LAUNCHES.items()}
-    del entry, systems, r
-    for fs in frames:
-        fs.renderer = None
+    del entry, systems
+    for v in views:
+        for fs in v:
+            fs.renderer = None
     gc.collect()
     if on_card:
         torch.cuda.synchronize()
@@ -278,8 +334,10 @@ def run(root: str, workload: str, seed: int, seconds: int, trace: bool,
     metrics = {}
     if not trace:
         for m in reg.end_to_end(workload):
+            if m["source"] == "device_trace" and meter is None:
+                continue  # no card: nothing on the device's clock
             metrics[m["name"]] = {"value": end_to_end(m["name"], done, window_s,
-                                                      timed, setup_s, log),
+                                                      timed, setup_s, log, meter),
                                   "unit": m["unit"]}
     else:
         for m in reg.per_layer(workload):

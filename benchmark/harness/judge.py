@@ -5,7 +5,8 @@ frames, drawn from the seed, against the frozen plain extractor
 (reference/orb.py) run on the same images once the window has closed.
 Tracking: the poses the entry returned in the window against the poses the
 frames were rendered from (a monocular map has its own scale, so the
-trajectory is aligned by a similarity first); a LOST frame has no pose.
+trajectory is aligned by a similarity first, whose scale a stereo or
+RGB-D map, metric by nature, should hold at 1); a LOST frame has no pose.
 Mapping: the map the mapper built, in the keyframes that observe it.
 
 Each number here is computed from what the program returned and the
@@ -61,10 +62,12 @@ def tracking(cameras) -> dict:
     """cameras: per camera (window frame indices, returned Tcw or None per
     frame, rendered Tcw per frame index). rpe_pct: the aligned estimated
     steps' error per metre of true step, over consecutive tracked frames;
-    lost_pct: window frames with no pose; ate_cm: the aligned RMSE."""
+    lost_pct: window frames with no pose; ate_cm: the aligned RMSE;
+    scale_err_pct: 100 |s - 1| of the alignment's scale s. ate_cm and
+    scale_err_pct take the worst camera."""
     err = tot = 0.0
     lost = n = 0
-    ates = []
+    ates, scales = [], []
     for frames, poses, truth in cameras:
         n += len(frames)
         ok = [(i, T) for i, T in zip(frames, poses) if T is not None]
@@ -79,9 +82,11 @@ def tracking(cameras) -> dict:
         err += e
         tot += t
         ates.append(geometry.ate_rmse(est, gt))
+        scales.append(abs(geometry.umeyama(est, gt)[0] - 1.0))
     return {"rpe_pct": 100.0 * err / tot if tot > 0 else float("inf"),
             "lost_pct": 100.0 * lost / max(n, 1),
-            "ate_cm": 100.0 * max(ates) if ates else float("inf")}
+            "ate_cm": 100.0 * max(ates) if ates else float("inf"),
+            "scale_err_pct": 100.0 * max(scales) if scales else float("inf")}
 
 
 def packed_from(feats, b: int) -> np.ndarray:

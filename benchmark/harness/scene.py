@@ -25,6 +25,21 @@ A path is a list of segments, each a dict:
 A segment whose "frames" is "window" gets `fps * seconds` frames (plus
 `spare_frames`), so that a window at the camera's own rate cannot run out;
 FrameStream renders only the frames a run reaches.
+
+A configuration's `sensor` says what each frame hands in besides the left
+or colour view (camera_streams), all rendered by the camera's one Renderer
+from its one ground:
+  "monocular"  (the default) the view alone;
+  "stereo"     the right view of a rectified pair: the left poses moved by
+               the baseline bf / fx along the left camera's +x, through the
+               same intrinsics (a stereo configuration has no distortion);
+  "rgbd"       a depth image registered to the colour view: at each
+               pixel the camera-frame z where its ray (the lens undone)
+               meets the ground, as uint16 round(z * depth_map_factor), 0
+               where the ray misses it (or lies past 16 bits), as TUM's
+               depth PNGs are coded.
+The left or colour view is the same frame a monocular configuration
+renders at the same seed.
 """
 
 from __future__ import annotations
@@ -33,6 +48,27 @@ import math
 
 import numpy as np
 import torch
+
+
+SENSORS = ("monocular", "stereo", "rgbd")
+DISTORTION = ("k1", "k2", "p1", "p2", "k3")
+
+
+def sensor_of(cfg: dict) -> str:
+    """The configuration's sensor, "monocular" where it names none, after
+    checking that the configuration gives what that sensor needs."""
+    sensor = cfg.get("sensor", "monocular")
+    if sensor not in SENSORS:
+        raise ValueError(f"sensor {sensor!r} is none of {SENSORS}")
+    cam = cfg["camera"]
+    if sensor != "monocular" and not float(cam.get("bf", 0.0)) > 0.0:
+        raise ValueError(f"a {sensor} configuration needs camera.bf > 0")
+    if sensor == "stereo" and any(float(cam.get(k, 0.0)) for k in DISTORTION):
+        raise ValueError("ORB-SLAM2's stereo input is a rectified pair: a stereo "
+                         "configuration has no distortion (k1, k2, p1, p2, k3 = 0)")
+    if sensor == "rgbd" and not float(cfg.get("depth_map_factor", 0.0)) > 0.0:
+        raise ValueError("an rgbd configuration needs depth_map_factor > 0")
+    return sensor
 
 
 def seed_generator(seed: int, device) -> torch.Generator:
@@ -128,6 +164,17 @@ def camera_path(traffic: dict, camera: dict, seconds: int, seed: int):
     return poses, seg_of
 
 
+def right_poses(poses, baseline: float) -> list:
+    """The right camera of a rectified pair: each left Tcw moved by the
+    baseline along the left camera's +x, Tcw_r = [I | (-b, 0, 0)] @ Tcw_l."""
+    out = []
+    for T in poses:
+        R = np.array(T, np.float64)
+        R[0, 3] -= baseline
+        out.append(R)
+    return out
+
+
 class Renderer:
     """Renders one camera's frames of its own textured strip on `device`."""
 
@@ -146,6 +193,7 @@ class Renderer:
         rows = int(math.ceil((C[:, 1].max() + reach - self.y_min) * self.tex_scale)) + 2
         self.texture = make_texture(rows, cols, g, self.device)
         self.rays = self._rays(int(traffic.get("supersample", 2)))
+        self.depth_rays = None
 
     def _rays(self, ss: int) -> torch.Tensor:
         """Unit-depth camera rays f64[3, H*ss, W*ss] of the subpixel samples
@@ -184,6 +232,12 @@ class Renderer:
         Y = (C[:, 1, None, None] + s * d[:, 1] - self.y_min) * self.tex_scale
         tex = self.texture
         rows, cols = tex.shape
+        off = (s > 0) & ((X < 0) | (X > cols - 1) | (Y < 0) | (Y > rows - 1))
+        if bool(off.any()):
+            raise RuntimeError(
+                f"{int(off.sum())} samples fall outside the {rows}x{cols} texture "
+                "(its clamped border): footprint_m does not cover what this "
+                "view sees")
         x0 = X.floor().clamp(0, cols - 2)
         y0 = Y.floor().clamp(0, rows - 2)
         fx = (X - x0).clamp(0, 1).float()
@@ -196,20 +250,42 @@ class Renderer:
         img = val.reshape(-1, H, ss, W, ss).mean(dim=(2, 4))
         return img.round().clamp(0, 255).to(torch.uint8)
 
+    def depth(self, Tcws, depth_map_factor: float) -> torch.Tensor:
+        """i32[B, H, W] on the device, one depth image per pose, registered
+        to the rendered view: at each pixel centre the camera-frame z where
+        its ray meets the ground (the rays have unit z), coded as
+        round(z * depth_map_factor); 0, no reading, where the ray misses the
+        ground or the code would not fit in 16 bits, as a depth camera
+        reports nothing past its range."""
+        if self.depth_rays is None:
+            self.depth_rays = self._rays(1)
+        c = self.cam
+        T = torch.as_tensor(np.stack(Tcws), dtype=torch.float64, device=self.device)
+        Rwc = T[:, :3, :3].transpose(1, 2)
+        C = -(Rwc @ T[:, :3, 3:])[..., 0]
+        d_z = torch.einsum("bj,jhw->bhw", Rwc[:, 2], self.depth_rays)
+        z = -C[:, 2, None, None] / d_z
+        code = (z * depth_map_factor).round()
+        code = torch.where((z > 0) & (code <= 65535), code, torch.zeros_like(z))
+        return code.to(torch.int32).reshape(-1, int(c["height"]), int(c["width"]))
+
 
 class FrameStream:
-    """One camera's frames as u8[H, W] host arrays, rendered on the device a
+    """One camera's frames as host arrays, u8[H, W] views or, with a
+    depth_map_factor, u16[H, W] depth images, rendered on the device a
     chunk at a time as the run reaches them: set-up renders only what it
     hands in, and the window only what it hands in, never the whole path.
     Chunks start at multiples of `chunk` frames, so a seed's frames are the
     same whenever they are rendered."""
 
-    def __init__(self, renderer: Renderer, poses, chunk: int = 32, batch: int = 2):
+    def __init__(self, renderer: Renderer, poses, chunk: int = 32, batch: int = 2,
+                 depth_map_factor: float | None = None):
         c = renderer.cam
         self.renderer, self.poses = renderer, poses
         self.chunk, self.batch = int(chunk), int(batch)
+        self.depth_map_factor = depth_map_factor
         self.frames = np.empty((len(poses), int(c["height"]), int(c["width"])),
-                               np.uint8)
+                               np.uint8 if depth_map_factor is None else np.uint16)
         self.ready = 0
 
     def __len__(self) -> int:
@@ -220,10 +296,37 @@ class FrameStream:
         n = min(-(-int(n) // self.chunk) * self.chunk, len(self.poses))
         for i in range(self.ready, n, self.batch):
             j = min(i + self.batch, n)
-            self.frames[i:j] = self.renderer.render(self.poses[i:j]).cpu().numpy()
+            if self.depth_map_factor is None:
+                out = self.renderer.render(self.poses[i:j])
+            else:
+                out = self.renderer.depth(self.poses[i:j], self.depth_map_factor)
+            self.frames[i:j] = out.cpu().numpy()
         self.ready = max(self.ready, n)
 
     def __getitem__(self, i: int) -> np.ndarray:
         if not 0 <= i < self.ready:
             raise IndexError(f"frame {i} not rendered (ready: {self.ready})")
         return self.frames[i]
+
+
+def camera_streams(cfg: dict, traffic: dict, seconds: int, seed: int, device):
+    """One camera's path and what its sensor hands in: (Tcw list, segment
+    index of each frame, [FrameStream of the left or colour view, then the
+    right view (stereo) or the depth image (rgbd)]), every stream rendered
+    from the camera's one ground. The texture's extent follows the left
+    path; a right view that leaves it fails its render."""
+    sensor = sensor_of(cfg)
+    cam = cfg["camera"]
+    poses, seg_of = camera_path(traffic, cam, seconds, seed)
+    r = Renderer(cam, traffic, poses, seed_generator(seed, device), device)
+    streams = [FrameStream(r, poses)]
+    if sensor == "stereo":
+        b = float(cam["bf"]) / float(cam["fx"])
+        if b >= float(traffic["footprint_m"]):
+            raise ValueError(f"the baseline {b:.3f} m is not inside the ground's "
+                             f"footprint_m {traffic['footprint_m']}")
+        streams.append(FrameStream(r, right_poses(poses, b)))
+    elif sensor == "rgbd":
+        streams.append(FrameStream(r, poses,
+                                   depth_map_factor=float(cfg["depth_map_factor"])))
+    return poses, seg_of, streams

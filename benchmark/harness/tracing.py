@@ -135,3 +135,73 @@ def profile_frames(torch, run_frames, n_frames: int) -> Trace:
           f"{unnamed} unnamed device records left out",
           file=sys.stderr, flush=True)
     return trace
+
+
+class KernelMeter:
+    """The card's kernel time over a whole window, for an end-to-end metric
+    on the device's clock: the window's frames run inside back-to-back
+    profiler sessions of about `chunk_s` seconds each (CUDA activity only),
+    and each session's records are read and dropped when it closes, so no
+    session holds more than a few seconds of kernels. Opening a session
+    (spin kernels and a synchronize, as for a sub-window) and reading one
+    are the harness's own work: `open` and `close` return the seconds they
+    took, which the window leaves out. The program's queued work is waited
+    for before a session closes, inside the window's time."""
+
+    def __init__(self, torch, chunk_s: float = 2.0):
+        self.torch, self.chunk_s = torch, float(chunk_s)
+        self.prof = None
+        self.opened = 0.0
+        self.kernel_s = 0.0
+        self.kernels = 0
+        self.launches = 0
+        self.sessions = 0
+
+    def open(self) -> float:
+        """Starts a session unless one is open; the seconds it took."""
+        import time
+        from torch.profiler import ProfilerActivity, profile
+        if self.prof is not None:
+            return 0.0
+        a = time.perf_counter()
+        self.torch.cuda.synchronize()
+        self.prof = profile(activities=[ProfilerActivity.CUDA])
+        self.prof.__enter__()
+        for _ in range(SPIN_KERNELS):
+            self.torch.cuda._sleep(1000)
+        self.torch.cuda.synchronize()
+        self.opened = time.perf_counter()
+        return self.opened - a
+
+    def due(self) -> bool:
+        import time
+        return self.prof is not None and time.perf_counter() - self.opened >= self.chunk_s
+
+    def close(self) -> float:
+        """Waits for the card, ends the session and adds up its kernels;
+        the seconds spent after the wait."""
+        import time
+        if self.prof is None:
+            return 0.0
+        self.torch.cuda.synchronize()
+        a = time.perf_counter()
+        prof, self.prof = self.prof, None
+        prof.__exit__(None, None, None)
+        spans = []
+        for e in prof.profiler.kineto_results.events():
+            name = e.name()
+            if e.device_type() == self.torch.autograd.DeviceType.CUDA:
+                if name and "spin" not in name and not name.startswith(("Memcpy", "Memset")):
+                    s = _ns(e, "start")
+                    spans.append((s, s + _ns(e, "dur")))
+            elif name in _LAUNCH_CALLS:
+                self.launches += 1
+        self.launches -= SPIN_KERNELS
+        self.kernels += len(spans)
+        self.kernel_s += union_seconds(spans) * 1e-9
+        self.sessions += 1
+        return time.perf_counter() - a
+
+    @property
+    def records_lost(self) -> int:
+        return max(self.launches - self.kernels, 0)

@@ -68,3 +68,32 @@ def test_kernel_b_bound_is_perf_md_describe_bound_at_640x480():
     # windows, bound 0.00084 ms (bytes).
     assert n_bytes == 4.0 * (686810 + 2 * 1024 + 11 * 1024)
     assert 1e3 * roofline.bound_s(n_bytes, n_ops) == pytest.approx(0.00084, abs=5e-6)
+
+
+def test_end_to_end_readings_of_a_window():
+    """kernel_ms_per_frame is the meter's kernel seconds over every window
+    frame; the host-clock readings are as before."""
+    import io
+    from types import SimpleNamespace
+    from harness import cell
+    meter = SimpleNamespace(kernel_s=0.75)
+    log = io.StringIO()
+    lat = [0.01 * k for k in range(1, 101)]
+    assert cell.end_to_end("kernel_ms_per_frame", 250, 51.0, lat, 30.0, log,
+                           meter) == pytest.approx(3.0)
+    assert cell.end_to_end("fps", 250, 50.0, lat, 30.0, log) == pytest.approx(5.0)
+    assert cell.end_to_end("frame_ms_p90", 250, 50.0, lat, 30.0, log) == pytest.approx(900.0)
+    assert cell.end_to_end("setup_s", 250, 50.0, lat, 30.0, log) == 30.0
+
+
+def test_entry_readers_match_the_end_to_end_arithmetic():
+    from types import SimpleNamespace
+    from harness.registry import Registry
+    reg = Registry(bench_support.REPO)
+    lat = [0.01 * k for k in range(1, 101)]
+    ctx = SimpleNamespace(frames=250, window_s=50.0, latencies=lat)
+    assert reg.metric_reader("entry.fps")(ctx) == pytest.approx(5.0)
+    assert reg.metric_reader("entry.frame_ms_p90")(ctx) == pytest.approx(900.0)
+    empty = SimpleNamespace(frames=0, window_s=0.0, latencies=[])
+    assert reg.metric_reader("entry.fps")(empty) is None
+    assert reg.metric_reader("entry.frame_ms_p90")(empty) is None

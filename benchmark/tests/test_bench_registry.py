@@ -38,7 +38,7 @@ def test_new_files_are_found_without_editing_any(tmp_path):
                                "traffic": "dummy_mix", "chips": 1, "why": "test"})
     bench["per_layer"].append({"name": "dummy.layer_metric", "unit": "%",
                                "better": "higher", "source": "program_counter",
-                               "layer": "tracking", "moves": "fps",
+                               "layer": "tracking", "moves": "kernel_ms_per_frame",
                                "workloads": ["dummy_cfg.dummy_mix"]})
     with open(os.path.join(root, "BENCHMARK.json"), "w") as f:
         json.dump(bench, f)
@@ -56,9 +56,9 @@ def test_new_files_are_found_without_editing_any(tmp_path):
     assert "dummy.layer_metric" not in [
         m["name"] for m in reg.per_layer("tum1_mono.explore")]
     assert [m["name"] for m in reg.end_to_end("tum1_mono.localize")] == [
-        "fps", "frame_ms_p90", "setup_s"]
+        "kernel_ms_per_frame", "setup_s"]
     assert [m["name"] for m in reg.end_to_end("dummy_cfg.dummy_mix")] == [
-        "fps", "setup_s"]
+        "kernel_ms_per_frame", "setup_s"]
     for path, data in before.items():
         assert open(path, "rb").read() == data, path
 
@@ -77,3 +77,26 @@ def test_every_name_in_benchmark_json_has_its_files():
         assert set(c["reduced"]) <= set(reg.config(c["name"]))
     assert filecmp.cmp(os.path.join(bench_support.REPO, "BENCHMARK.json"),
                        os.path.join(bench_support.REPO, "BENCHMARK.json"))
+
+
+def test_a_rig_configuration_is_found_as_new_files(tmp_path):
+    """A stereo configuration, its traffic, limits and cell come as new
+    files and entries: every file the benchmark had stays as it is."""
+    root = bench_support.make_root(tmp_path, sensor="stereo")
+    b = os.path.join(root, "benchmark")
+    for d, _dirs, files in os.walk(bench_support.BENCH):
+        rel = os.path.relpath(d, bench_support.BENCH)
+        if rel.split(os.sep)[0] in ("tests", "__pycache__") or "__pycache__" in rel:
+            continue
+        for f in files:
+            assert filecmp.cmp(os.path.join(d, f), os.path.join(b, rel, f),
+                               shallow=False), os.path.join(rel, f)
+    reg = Registry(root)
+    cfg = reg.config(reg.workload("tiny_stereo.tiny_explore")["config"])
+    assert cfg["sensor"] == "stereo" and cfg["camera"]["bf"] > 0
+    entry = reg.entry(cfg["entry"])
+    assert cfg["entry"] == "system_stereo" and hasattr(entry, "Entry")
+    assert reg.traffic("tiny_explore")["path"]
+    assert reg.limits("tiny_stereo.tiny_explore")["compare"]
+    assert [m["name"] for m in reg.end_to_end("tiny_stereo.tiny_explore")] == [
+        "kernel_ms_per_frame", "setup_s"]
